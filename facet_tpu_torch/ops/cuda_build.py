@@ -1,0 +1,89 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``facet_tpu_torch/csrc/*.cu`` file is compiled at first use by
+``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+-Xcompiler -fPIC`` into one shared library with a plain C interface under
+``build/kernels/`` (listed in ``.gitignore``), named by a hash of the
+sources and flags, and loaded with ctypes. Nothing is built when the module
+is imported: the CPU tests import every module and have no nvcc.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+# C entry point -> argument types (pointers and the stream are c_void_p)
+SIGNATURES = {
+    "facet_hs_entropy": [_P, _P, _P, _P, _I, _L, _I, _I, _P],
+    "facet_cross_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+}
+
+_lib = None
+build_info = {}    # seconds, ptxas log and library path of the last build
+
+
+def _nvcc():
+    for cand in (os.environ.get("NVCC"), "/usr/local/cuda/bin/nvcc",
+                 shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build on a machine "
+                       "with the CUDA toolkit (set NVCC to its path)")
+
+
+def build():
+    """Compile csrc/*.cu into one .so (cached by content) -> its path."""
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(FLAGS).encode())
+    for src in sources:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    lib_path = BUILD_DIR / f"libfacet_kernels_{digest.hexdigest()[:16]}.so"
+    if lib_path.exists():
+        build_info.update(seconds=0.0, log="(cached)", path=str(lib_path))
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+    t0 = time.time()
+    proc = subprocess.run([_nvcc(), *FLAGS, "-o", str(tmp),
+                           *[str(s) for s in sources]],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib_path)
+    build_info.update(seconds=time.time() - t0, log=proc.stderr + proc.stdout,
+                      path=str(lib_path))
+    return lib_path
+
+
+def library():
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check(err, name):
+    """Raise when a C entry point returned a non-zero cudaError_t."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")

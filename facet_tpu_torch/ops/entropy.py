@@ -1,0 +1,120 @@
+"""H-S joint entropy: kernel 1 of the port.
+
+``hs_entropy(hue, sat, stride=1)`` is the counterpart of
+``facet_tpu/ops/pallas_entropy.py:hs_entropy_pallas_ilp``: per image, the
+180x256 joint histogram of exact-cv2 hue (0..179) and saturation (0..255)
+over every ``stride``-th pixel, and its Shannon entropy in bits, normalized
+by the in-range count (a hue outside 0..179 lands in no bin). On a CUDA
+tensor it launches the CUDA kernel in ``csrc/hs_entropy.cu``; on a CPU
+tensor it computes the plain twin ``hs_entropy_plain``.
+"""
+
+import math
+
+import torch
+
+from facet_tpu_torch.ops import cuda_build
+
+HUE_BINS = 180
+SAT_BINS = 256
+BINS = HUE_BINS * SAT_BINS
+# pixels per block below which more slices only add partial-histogram traffic
+_MIN_SLICE_PIXELS = 16384
+
+
+def _check(hue, sat, stride):
+    if hue.dim() != 2 or hue.shape != sat.shape:
+        raise ValueError(f"hue/sat must be matching (B, N) planes, got "
+                         f"{tuple(hue.shape)} and {tuple(sat.shape)}")
+    if hue.dtype != torch.int32 or sat.dtype != torch.int32:
+        raise TypeError(f"hue/sat must be int32, got {hue.dtype}/{sat.dtype}")
+    if hue.device != sat.device:
+        raise ValueError(f"hue on {hue.device} but sat on {sat.device}")
+    if not (hue.is_contiguous() and sat.is_contiguous()):
+        raise ValueError("hue/sat must be contiguous")
+    if int(stride) != stride or stride < 1:
+        raise ValueError(f"stride must be a positive int, got {stride!r}")
+    if hue.shape[0] < 1 or hue.shape[1] < 1:
+        raise ValueError(f"empty planes {tuple(hue.shape)}")
+
+
+def hs_histogram_plain(hue, sat, stride=1):
+    """(B, 46080) int64 joint histogram of the in-range pixels (bincount)."""
+    _check(hue, sat, stride)
+    h = hue[:, ::stride].long()
+    s = sat[:, ::stride].long()
+    b = h.shape[0]
+    valid = (h >= 0) & (h < HUE_BINS) & (s >= 0) & (s < SAT_BINS)
+    offsets = torch.arange(b, device=h.device)[:, None] * BINS
+    codes = torch.where(valid, h * SAT_BINS + s + offsets,
+                        torch.full_like(h, b * BINS))
+    hist = torch.bincount(codes.reshape(-1), minlength=b * BINS + 1)
+    return hist[:b * BINS].view(b, BINS)
+
+
+def entropy_from_histogram(hist):
+    """-sum p log2 p in float32, p = count * (1 / in-range total); 0 for an
+    image with no in-range pixel."""
+    total = hist.sum(dim=1, keepdim=True)
+    p = hist.to(torch.float32) * (1.0 / total.to(torch.float32))
+    logp = torch.log2(torch.where(p > 0, p, torch.ones_like(p)))
+    entropy = -torch.sum(torch.where(p > 0, p * logp, torch.zeros_like(p)), dim=1)
+    return torch.where(total[:, 0] > 0, entropy, torch.zeros_like(entropy))
+
+
+def hs_entropy_plain(hue, sat, stride=1):
+    """Plain PyTorch twin: bincount histogram + the f32 entropy formula."""
+    return entropy_from_histogram(hs_histogram_plain(hue, sat, stride))
+
+
+def slices_for(batch, n_eff, sm_count):
+    """Blocks per image: enough for ~2 blocks per SM over the batch, but no
+    slice thinner than _MIN_SLICE_PIXELS pixels."""
+    want = math.ceil(2 * sm_count / batch)
+    return max(1, min(want, math.ceil(n_eff / _MIN_SLICE_PIXELS)))
+
+
+def _launch(hue, sat, stride):
+    """Launch the kernel -> ((B,) entropy, (B, slices, 46080) partials)."""
+    b, n = hue.shape
+    if b > 65535:
+        raise ValueError(f"hs_entropy: batch {b} exceeds the grid limit 65535")
+    lib = cuda_build.library()
+    n_eff = -(-n // stride)
+    sm_count = torch.cuda.get_device_properties(hue.device).multi_processor_count
+    slices = slices_for(b, n_eff, sm_count)
+    partial = torch.empty((b, slices, BINS), dtype=torch.int32, device=hue.device)
+    out = torch.empty((b,), dtype=torch.float32, device=hue.device)
+    with torch.cuda.device(hue.device):
+        err = lib.facet_hs_entropy(
+            hue.data_ptr(), sat.data_ptr(), partial.data_ptr(), out.data_ptr(),
+            b, n, int(stride), slices, torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(err, "hs_entropy")
+    hs_entropy.launches += 1
+    return out, partial
+
+
+def hs_entropy(hue, sat, stride=1):
+    """(B, N) int32 hue, (B, N) int32 saturation -> (B,) float32 bits."""
+    _check(hue, sat, stride)
+    if hue.device.type == "cpu":
+        return hs_entropy_plain(hue, sat, stride)
+    if hue.device.type != "cuda":
+        raise ValueError(f"hs_entropy: unsupported device {hue.device}")
+    return _launch(hue, sat, stride)[0]
+
+
+def hs_entropy_with_histogram(hue, sat, stride=1):
+    """-> (entropy, (B, 46080) int64 histogram): the kernel's histogram made
+    visible, for checking it exactly against the twin on the card."""
+    _check(hue, sat, stride)
+    if hue.device.type == "cpu":
+        hist = hs_histogram_plain(hue, sat, stride)
+        return entropy_from_histogram(hist), hist
+    if hue.device.type != "cuda":
+        raise ValueError(f"hs_entropy: unsupported device {hue.device}")
+    out, partial = _launch(hue, sat, stride)
+    return out, partial.sum(dim=1, dtype=torch.int64)
+
+
+hs_entropy.launches = 0

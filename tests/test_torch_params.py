@@ -1,0 +1,136 @@
+"""The port's parameter tables against the JAX package's flax trees.
+
+``facet_tpu_torch.params.fallback_values`` must reproduce
+``facet_tpu.models.checkpoints.fallback_init`` bit for bit (same leaves,
+same order, same float32 values), and ``bridge`` must refuse a tree with a
+missing or a surplus key.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from facet_tpu_torch import params as P
+
+TINY_CLIP = dict(image_size=56, patch_size=14, width=64, layers=2, heads=4,
+                 projection_dim=768)
+
+
+def _flax_flat(tree):
+    return {tuple(str(getattr(k, "key", k)) for k in path): np.asarray(leaf)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def _pairs():
+    """(port module, jax module, example input shape, seed) per family."""
+    from facet_tpu.models import aesthetic as jaes
+    from facet_tpu.models import clip as jclip
+    from facet_tpu.models import topiq as jtopiq
+    from facet_tpu_torch.models import aesthetic, clip, topiq
+
+    return {
+        "clip": (clip.CLIPVisionTower(clip.CLIPVisionConfig(**TINY_CLIP)),
+                 jclip.CLIPVisionTower(jclip.CLIPVisionConfig(**TINY_CLIP)),
+                 (1, 56, 56, 3), 0),
+        "head": (aesthetic.AestheticHead(), jaes.AestheticHead(), (1, 768), 1),
+        "topiq": (topiq.TOPIQNet(topiq.TOPIQConfig(input_size=128)),
+                  jtopiq.TOPIQNet(jtopiq.TOPIQConfig(input_size=128)),
+                  (1, 128, 128, 3), 30),
+    }
+
+
+@pytest.mark.parametrize("family", ["clip", "head", "topiq"])
+def test_fallback_init_bit_identical(family):
+    from facet_tpu.models.checkpoints import fallback_init, sds
+
+    port, flax_mod, shape, seed = _pairs()[family]
+    want = _flax_flat(fallback_init(flax_mod, sds(shape), seed=seed))
+    got = P.fallback_values(port.flax_layout(), seed=seed)
+    assert sorted(got) == sorted(want)
+    for path, arr in want.items():
+        assert got[path].shape == arr.shape, path
+        assert got[path].dtype == arr.dtype, path
+        np.testing.assert_array_equal(got[path], arr, err_msg="/".join(path))
+
+
+def test_fallback_init_fills_the_module():
+    from facet_tpu_torch.models.aesthetic import AestheticHead
+
+    head = P.fallback_init(AestheticHead(), seed=1)
+    values = P.fallback_values(head.flax_layout(), seed=1)
+    np.testing.assert_array_equal(head.fc1.weight.detach().numpy(),
+                                  values[("params", "fc1", "kernel")].T)
+    assert torch.count_nonzero(head.fc1.bias) == 0
+
+
+def _head_tree():
+    from facet_tpu.models.aesthetic import AestheticHead
+    from facet_tpu.models.checkpoints import fallback_init, sds
+
+    return jax.tree.map(np.asarray, fallback_init(AestheticHead(), sds((1, 768)),
+                                                  seed=1))
+
+
+def test_bridge_raises_on_missing_key():
+    from facet_tpu_torch.models.aesthetic import AestheticHead
+
+    tree = _head_tree()
+    del tree["params"]["fc2"]["bias"]
+    with pytest.raises(KeyError, match="missing"):
+        P.bridge(AestheticHead(), tree)
+
+
+def test_bridge_raises_on_surplus_key():
+    from facet_tpu_torch.models.aesthetic import AestheticHead
+
+    tree = _head_tree()
+    tree["params"]["fc3"] = {"kernel": np.zeros((1, 1), np.float32)}
+    with pytest.raises(KeyError, match="surplus"):
+        P.bridge(AestheticHead(), tree)
+
+
+def test_bridge_copies_layouts():
+    """Dense (in, out) -> (out, in); DenseGeneral (in, H, D) -> (H*D, in)
+    and (H, D, out) -> (out, H*D); conv HWIO -> OIHW; BatchNorm stats."""
+    from facet_tpu.models.topiq import ChunkedAttention as JAttn
+    from facet_tpu_torch.models.topiq import Bottleneck, ChunkedAttention
+
+    rng = np.random.default_rng(0)
+    jattn = JAttn(num_heads=4, qkv_features=32)
+    x = jnp.asarray(rng.normal(size=(1, 8, 32)).astype(np.float32))
+    tree = jattn.init(jax.random.PRNGKey(0), x, x)["params"]
+    attn = ChunkedAttention(4, 32)
+
+    class Wrap(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.attn = attn
+
+        def flax_layout(self):
+            return attn.flax_layout(("params",))
+
+    P.bridge(Wrap(), {"params": tree})
+    with torch.no_grad():
+        got = attn(torch.from_numpy(np.asarray(x)), torch.from_numpy(np.asarray(x)))
+    want = np.asarray(jattn.apply({"params": tree}, x, x))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+
+    block = Bottleneck(16, 8, stride=2)
+    leaves = block.flax_layout(("blk",))
+    kinds = {leaf.path[-1] for leaf in leaves}
+    assert {"kernel", "scale", "bias", "mean", "var"} <= kinds
+    assert sum(leaf.path[0] == "batch_stats" for leaf in leaves) == 8
+
+
+def test_load_npz_reads_the_converter_layout(tmp_path, monkeypatch):
+    from facet_tpu.models.convert import save_params
+
+    tree = _head_tree()
+    save_params(tree, str(tmp_path / "aesthetic_head.npz"))
+    monkeypatch.setattr(P, "PRETRAINED_DIR", str(tmp_path))
+    loaded = P.load_npz("aesthetic_head")
+    np.testing.assert_array_equal(loaded["params"]["fc1"]["kernel"],
+                                  tree["params"]["fc1"]["kernel"])
+    assert P.load_npz("no_such_checkpoint") is None
