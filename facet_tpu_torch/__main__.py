@@ -2,10 +2,13 @@
 
 The scan path of ``photos.py`` for the passes the port runs:
 ``--pass quality|embeddings|tags``, with ``--db``, ``--config``, ``--force``,
-``--limit`` and ``--speed-tier``. The default multi-pass scan and
-``--single-pass`` need ensemble members that are not ported yet, so they
-exit non-zero and name those members instead of silently scoring fewer;
-every other ``photos.py`` mode exits with "not yet ported".
+``--limit`` and ``--speed-tier``. It runs on the card; ``--device cpu`` asks
+for the CPU (the counterpart of photos.py's JAX platform setting), and
+without a usable card and that flag it exits with an error. The default
+multi-pass scan and ``--single-pass`` need ensemble members that are not
+ported yet, so they exit non-zero and name those members instead of
+silently scoring fewer; every other ``photos.py`` mode exits with "not yet
+ported".
 """
 
 import argparse
@@ -29,6 +32,9 @@ def build_parser():
     p.add_argument("--force", action="store_true", help="rescan already-scored photos")
     p.add_argument("--limit", type=int, default=None, help="max photos this run")
     p.add_argument("--speed-tier", choices=["exact", "fast"], default=None)
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where the models and kernels run (default: the card; "
+                        "the CPU only when asked)")
     return p
 
 
@@ -46,19 +52,25 @@ def main(argv=None):
         print(f"error: {args.directory} is not a directory", file=sys.stderr)
         return 1
 
-    from facet_tpu.config.scoring_config import ScoringConfig
-    from facet_tpu.db.connection import resolve_db_path
-    from facet_tpu.utils.image_loading import gather_image_files
+    from facet_tpu_torch.config.scoring_config import ScoringConfig
+    from facet_tpu_torch.db.connection import resolve_db_path
+    from facet_tpu_torch.models.model_manager import resolve_device
     from facet_tpu_torch.processing.multi_pass import ChunkedMultiPassProcessor
     from facet_tpu_torch.processing.scorer import Facet
     from facet_tpu_torch.utils.burst import process_bursts
+    from facet_tpu_torch.utils.image_loading import gather_image_files
 
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 1
     db_path = resolve_db_path(args.db)
     config = ScoringConfig(args.config)
     if args.speed_tier:
         # in-memory override only, as photos.py does
         config.config.setdefault("processing", {})["speed_tier"] = args.speed_tier
-    scorer = Facet(db_path, config)
+    scorer = Facet(db_path, config, device=device)
 
     if args.pass_name is None or args.single_pass:
         mode = "--single-pass" if args.single_pass else "the default multi-pass scan"

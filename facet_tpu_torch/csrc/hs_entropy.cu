@@ -14,22 +14,24 @@
 // histogram, walks its slice of the image's pixel stream (every stride-th
 // pixel) with four independent coalesced loads in flight per thread and
 // shared-memory atomicAdd, then writes its partial histogram to a
-// (B, slices, 46080) scratch. A second kernel sums the partials of each
-// image (exact integers), then reduces -sum p*log2(p) with
-// p = count * (1 / in-range total) in float32 per bin and a float64 sum.
+// (B, slices, 46080) scratch. A second kernel (hs_reduce.cuh) sums the
+// partials of each image (exact integers), then reduces -sum p*log2(p) with
+// p = count * (1 / denominator) in float32 per bin and a float64 sum.
 // No global atomics: the histogram is exact and the entropy reproducible
 // run to run. Pixels with hue outside 0..179 (or saturation outside
 // 0..255) land in no bin and are not counted in the total.
+//
+// Kernel 3 (facet_tpu/ops/pallas_entropy.py:hs_entropy_pallas) is the same
+// computation with a fixed denominator: n_valid > 0 replaces the in-range
+// count in the reduce. No new histogram kernel is needed.
 
 #include <cuda_runtime.h>
 
+#include "hs_reduce.cuh"
+
 namespace {
 
-constexpr int kHueBins = 180;
-constexpr int kSatBins = 256;
-constexpr int kBins = kHueBins * kSatBins;          // 46080
 constexpr int kHistThreads = 1024;
-constexpr int kReduceThreads = 1024;
 constexpr int kUnroll = 4;
 
 __device__ __forceinline__ void add_pixel(int* hist, int h, int s) {
@@ -84,61 +86,15 @@ hs_hist_partial(const int* __restrict__ hue, const int* __restrict__ sat,
   for (int i = threadIdx.x; i < kBins / 4; i += blockDim.x) out[i] = smem4[i];
 }
 
-template <typename T>
-__device__ T block_sum(T v, T* scratch) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  const int nwarps = (blockDim.x + 31) >> 5;
-  v = (threadIdx.x < nwarps) ? scratch[threadIdx.x] : T(0);
-  if (warp == 0) {
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) scratch[0] = v;
-  }
-  __syncthreads();
-  v = scratch[0];
-  __syncthreads();
-  return v;
-}
-
-__global__ void __launch_bounds__(kReduceThreads)
-hs_entropy_reduce(const int* __restrict__ partial, float* __restrict__ out,
-                  int slices) {
-  __shared__ long long scratch_i[32];
-  __shared__ double scratch_d[32];
-  const int b = blockIdx.x;
-  const int* base = partial + (long long)b * slices * kBins;
-
-  long long count = 0;
-  for (int i = threadIdx.x; i < kBins; i += blockDim.x) {
-    for (int s = 0; s < slices; ++s) count += base[(long long)s * kBins + i];
-  }
-  const long long total = block_sum(count, scratch_i);
-
-  const float inv = total > 0 ? 1.0f / (float)total : 0.0f;
-  double acc = 0.0;
-  for (int i = threadIdx.x; i < kBins; i += blockDim.x) {
-    int c = 0;
-    for (int s = 0; s < slices; ++s) c += base[(long long)s * kBins + i];
-    if (c > 0) {
-      const float p = (float)c * inv;
-      acc += (double)(p * log2f(p));
-    }
-  }
-  acc = block_sum(acc, scratch_d);
-  if (threadIdx.x == 0) out[b] = total > 0 ? (float)(-acc) : 0.0f;
-}
-
 }  // namespace
 
 // hue, sat: (B, n) int32, contiguous. partial: (B, slices, 46080) int32
-// scratch. out: (B,) float32. Returns the cudaError_t of the launches.
+// scratch. out: (B,) float32. n_valid: 0 normalizes by the in-range count,
+// > 0 is a fixed denominator. Returns the cudaError_t of the launches.
 extern "C" int facet_hs_entropy(const void* hue, const void* sat,
                                 void* partial, void* out, int batch,
                                 long long n, int stride, int slices,
-                                void* stream) {
+                                long long n_valid, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaFuncSetAttribute(
       hs_hist_partial, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -152,6 +108,7 @@ extern "C" int facet_hs_entropy(const void* hue, const void* sat,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   hs_entropy_reduce<<<batch, kReduceThreads, 0, st>>>(
-      static_cast<const int*>(partial), static_cast<float*>(out), slices);
+      static_cast<const int*>(partial), static_cast<float*>(out), slices,
+      n_valid);
   return (int)cudaGetLastError();
 }

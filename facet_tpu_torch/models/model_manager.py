@@ -1,9 +1,11 @@
 """Model lifecycle: loading, device-memory budgeting, pass planning and the
 host-RAM parameter cache.
 
-Counterpart of ``facet_tpu/models/model_manager.py``. Device memory comes
-from ``torch.cuda.mem_get_info`` (total memory of the card), or host RAM in
-CPU mode; pass grouping is the same first-fit-decreasing bin packing over
+Counterpart of ``facet_tpu/models/model_manager.py``. It runs on the card
+unless the caller asks for the CPU (``device="cpu"``), and raises when
+there is no usable card. Device memory comes from
+``torch.cuda.mem_get_info`` (total memory of the card), or host RAM in CPU
+mode; pass grouping is the same first-fit-decreasing bin packing over
 that budget. Factories are registered for ``clip`` and ``topiq`` only; any
 other member of the JAX package's ensemble raises ``NotImplementedError``
 naming the ROADMAP queue it waits in.
@@ -39,8 +41,16 @@ UNPORTED = {
 }
 
 
-def default_device():
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+def resolve_device(device=None):
+    """The device the port runs on: the card, unless the caller asks for the
+    CPU. A missing or unusable card is an error, never a quiet CPU run."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "facet_tpu_torch runs on an NVIDIA GPU, and no usable CUDA card was "
+            "found (torch.cuda.is_available() is false); to run on the CPU, "
+            "ask for it: --device cpu on the command line, device='cpu' in code")
+    return device
 
 
 def detect_device_memory_gb(device):
@@ -64,7 +74,7 @@ class ModelManager:
 
     def __init__(self, config=None, device=None, memory_gb=None):
         self.config = config
-        self.device = torch.device(device) if device is not None else default_device()
+        self.device = resolve_device(device)
         self.memory_gb = (detect_device_memory_gb(self.device) if memory_gb is None
                           else memory_gb)
         self.loaded = {}

@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-Every ``facet_tpu_torch/csrc/*.cu`` file is compiled at first use by
-``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
--Xcompiler -fPIC`` into one shared library with a plain C interface under
-``build/kernels/`` (listed in ``.gitignore``), named by a hash of the
-sources and flags, and loaded with ctypes. Nothing is built when the module
-is imported: the CPU tests import every module and have no nvcc.
+Every ``facet_tpu_torch/csrc/*.cu`` file (with the ``*.cuh`` headers they
+include) is compiled at first use by its own
+``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler
+-fPIC -c``, all of them started together, and the objects are linked into
+one shared library with a plain C interface under ``build/kernels/``
+(listed in ``.gitignore``), named by a hash of the sources and flags, and
+loaded with ctypes. Nothing is built when the module is imported: the CPU
+tests import every module and have no nvcc.
 """
 
 import ctypes
@@ -20,15 +22,17 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+         "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C entry point -> argument types (pointers and the stream are c_void_p)
 SIGNATURES = {
-    "facet_hs_entropy": [_P, _P, _P, _P, _I, _L, _I, _I, _P],
+    "facet_hs_entropy": [_P, _P, _P, _P, _I, _L, _I, _I, _L, _P],
     "facet_cross_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "facet_gray_stats": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "facet_fused_stats": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _P],
 }
 
 _lib = None
@@ -48,25 +52,36 @@ def build():
     """Compile csrc/*.cu into one .so (cached by content) -> its path."""
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in sources:
+    for src in sorted([*sources, *CSRC.glob("*.cuh")]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     lib_path = BUILD_DIR / f"libfacet_kernels_{digest.hexdigest()[:16]}.so"
     if lib_path.exists():
         build_info.update(seconds=0.0, log="(cached)", path=str(lib_path))
         return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+    work = BUILD_DIR / f"objects.{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
     t0 = time.time()
-    proc = subprocess.run([_nvcc(), *FLAGS, "-o", str(tmp),
-                           *[str(s) for s in sources]],
+    nvcc = _nvcc()
+    jobs = [(src, subprocess.Popen(
+        [nvcc, *FLAGS, "-c", "-o", str(work / f"{src.stem}.o"), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)) for src in sources]
+    done = [(src, job, *job.communicate()) for src, job in jobs]    # wait for all
+    log = []
+    for src, job, out, err in done:
+        log.append(err + out)
+        if job.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name} ({job.returncode}):\n{out}\n{err}")
+    tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                           *[str(work / f"{src.stem}.o") for src in sources]],
                           capture_output=True, text=True)
+    shutil.rmtree(work, ignore_errors=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                            f"{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, lib_path)
-    build_info.update(seconds=time.time() - t0, log=proc.stderr + proc.stdout,
-                      path=str(lib_path))
+    build_info.update(seconds=time.time() - t0, log="".join(log), path=str(lib_path))
     return lib_path
 
 

@@ -1,12 +1,20 @@
-"""H-S joint entropy: kernel 1 of the port.
+"""H-S joint entropy: kernels 1 and 3 of the port.
 
 ``hs_entropy(hue, sat, stride=1)`` is the counterpart of
-``facet_tpu/ops/pallas_entropy.py:hs_entropy_pallas_ilp``: per image, the
-180x256 joint histogram of exact-cv2 hue (0..179) and saturation (0..255)
-over every ``stride``-th pixel, and its Shannon entropy in bits, normalized
-by the in-range count (a hue outside 0..179 lands in no bin). On a CUDA
-tensor it launches the CUDA kernel in ``csrc/hs_entropy.cu``; on a CPU
-tensor it computes the plain twin ``hs_entropy_plain``.
+``facet_tpu/ops/pallas_entropy.py:hs_entropy_pallas_ilp`` (kernel 1): per
+image, the 180x256 joint histogram of exact-cv2 hue (0..179) and saturation
+(0..255) over every ``stride``-th pixel, and its Shannon entropy in bits,
+normalized by the in-range count (a hue outside 0..179 lands in no bin).
+
+``hs_entropy(hue, sat, n_valid=n)`` is the counterpart of
+``pallas_entropy.py:hs_entropy_pallas`` (kernel 3): the same histogram with
+the fixed denominator ``n``. That TPU kernel counts hue rows up to its
+padded 192 while kernel 1 drops hue >= 180; the engine's hues are 0..179
+and its markers -1 or 255, so the two agree on every input the engine
+makes, and the port drops hue >= 180 in both.
+
+On a CUDA tensor it launches the CUDA kernel in ``csrc/hs_entropy.cu``; on
+a CPU tensor it computes the plain twin ``hs_entropy_plain``.
 """
 
 import math
@@ -22,7 +30,7 @@ BINS = HUE_BINS * SAT_BINS
 _MIN_SLICE_PIXELS = 16384
 
 
-def _check(hue, sat, stride):
+def _check(hue, sat, stride, n_valid=None):
     if hue.dim() != 2 or hue.shape != sat.shape:
         raise ValueError(f"hue/sat must be matching (B, N) planes, got "
                          f"{tuple(hue.shape)} and {tuple(sat.shape)}")
@@ -36,6 +44,8 @@ def _check(hue, sat, stride):
         raise ValueError(f"stride must be a positive int, got {stride!r}")
     if hue.shape[0] < 1 or hue.shape[1] < 1:
         raise ValueError(f"empty planes {tuple(hue.shape)}")
+    if n_valid is not None and (int(n_valid) != n_valid or n_valid < 1):
+        raise ValueError(f"n_valid must be a positive int or None, got {n_valid!r}")
 
 
 def hs_histogram_plain(hue, sat, stride=1):
@@ -52,19 +62,21 @@ def hs_histogram_plain(hue, sat, stride=1):
     return hist[:b * BINS].view(b, BINS)
 
 
-def entropy_from_histogram(hist):
-    """-sum p log2 p in float32, p = count * (1 / in-range total); 0 for an
-    image with no in-range pixel."""
+def entropy_from_histogram(hist, n_valid=None):
+    """-sum p log2 p in float32, p = count * (1 / denominator): the in-range
+    total, or n_valid when given; 0 for an image with no in-range pixel."""
     total = hist.sum(dim=1, keepdim=True)
-    p = hist.to(torch.float32) * (1.0 / total.to(torch.float32))
+    denom = total if n_valid is None else torch.full_like(total, int(n_valid))
+    p = hist.to(torch.float32) * (1.0 / denom.to(torch.float32))
     logp = torch.log2(torch.where(p > 0, p, torch.ones_like(p)))
     entropy = -torch.sum(torch.where(p > 0, p * logp, torch.zeros_like(p)), dim=1)
     return torch.where(total[:, 0] > 0, entropy, torch.zeros_like(entropy))
 
 
-def hs_entropy_plain(hue, sat, stride=1):
+def hs_entropy_plain(hue, sat, stride=1, n_valid=None):
     """Plain PyTorch twin: bincount histogram + the f32 entropy formula."""
-    return entropy_from_histogram(hs_histogram_plain(hue, sat, stride))
+    _check(hue, sat, stride, n_valid)
+    return entropy_from_histogram(hs_histogram_plain(hue, sat, stride), n_valid)
 
 
 def slices_for(batch, n_eff, sm_count):
@@ -74,7 +86,7 @@ def slices_for(batch, n_eff, sm_count):
     return max(1, min(want, math.ceil(n_eff / _MIN_SLICE_PIXELS)))
 
 
-def _launch(hue, sat, stride):
+def _launch(hue, sat, stride, n_valid):
     """Launch the kernel -> ((B,) entropy, (B, slices, 46080) partials)."""
     b, n = hue.shape
     if b > 65535:
@@ -88,20 +100,26 @@ def _launch(hue, sat, stride):
     with torch.cuda.device(hue.device):
         err = lib.facet_hs_entropy(
             hue.data_ptr(), sat.data_ptr(), partial.data_ptr(), out.data_ptr(),
-            b, n, int(stride), slices, torch.cuda.current_stream().cuda_stream)
+            b, n, int(stride), slices, int(n_valid or 0),
+            torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, "hs_entropy")
-    hs_entropy.launches += 1
+    if n_valid is None:
+        hs_entropy.launches += 1               # kernel 1
+    else:
+        hs_entropy.launches_fixed += 1         # kernel 3
     return out, partial
 
 
-def hs_entropy(hue, sat, stride=1):
-    """(B, N) int32 hue, (B, N) int32 saturation -> (B,) float32 bits."""
-    _check(hue, sat, stride)
+def hs_entropy(hue, sat, stride=1, n_valid=None):
+    """(B, N) int32 hue, (B, N) int32 saturation -> (B,) float32 bits;
+    ``n_valid`` fixes the denominator (kernel 3), None normalizes by the
+    in-range count (kernel 1)."""
+    _check(hue, sat, stride, n_valid)
     if hue.device.type == "cpu":
-        return hs_entropy_plain(hue, sat, stride)
+        return hs_entropy_plain(hue, sat, stride, n_valid)
     if hue.device.type != "cuda":
         raise ValueError(f"hs_entropy: unsupported device {hue.device}")
-    return _launch(hue, sat, stride)[0]
+    return _launch(hue, sat, stride, n_valid)[0]
 
 
 def hs_entropy_with_histogram(hue, sat, stride=1):
@@ -113,8 +131,9 @@ def hs_entropy_with_histogram(hue, sat, stride=1):
         return entropy_from_histogram(hist), hist
     if hue.device.type != "cuda":
         raise ValueError(f"hs_entropy: unsupported device {hue.device}")
-    out, partial = _launch(hue, sat, stride)
+    out, partial = _launch(hue, sat, stride, None)
     return out, partial.sum(dim=1, dtype=torch.int64)
 
 
-hs_entropy.launches = 0
+hs_entropy.launches = 0          # kernel 1 (in-range denominator)
+hs_entropy.launches_fixed = 0    # kernel 3 (n_valid given)

@@ -3,7 +3,8 @@ uint8 batch.
 
 Counterpart of ``facet_tpu/processing/device_pipeline.py``
 (``build_fused_pipeline`` and ``FusedScorer``). Per image shape and chunk of
-256 it computes the technical statistics (with kernel 1), the pHash bits,
+256 it computes the technical statistics (kernels 1 and 5, or 4 and 5 with
+``FACET_ENTROPY_IMPL=pallas_fused``; see ``ops/stats.py``), the pHash bits,
 the CLIP crop (separable-matmul resize), the ViT forward, the aesthetic
 head and the normalized embedding.
 
@@ -24,7 +25,8 @@ from facet_tpu_torch.ops.colorspace import rgb_to_gray
 from facet_tpu_torch.ops.phash import _bits_to_hex, hash_bits, hash_matrices, low_frequencies
 from facet_tpu_torch.ops.precision import full_float32
 from facet_tpu_torch.ops.resize import apply_separable_resize, clip_preprocess_matrices
-from facet_tpu_torch.ops.stats import CHUNK, batch_stats, stats_from_outputs
+from facet_tpu_torch.ops.stats import (
+    CHUNK, batch_stats, resolve_entropy_impl, stats_from_outputs)
 
 _STAT_KEYS = ("gray_hist", "sat", "hs_entropy", "lap", "lapsq", "imm")
 
@@ -48,12 +50,14 @@ def fetch(tree, device):
 class FusedScorer:
     """Aesthetic + embedding + pHash + technical statistics per chunk."""
 
-    def __init__(self, aesthetic, hs_subsample=1):
+    def __init__(self, aesthetic, hs_subsample=1, entropy_impl="auto"):
         self.aesthetic = aesthetic          # models.aesthetic.AestheticScorer
         self.device = aesthetic.device
         # fast mode (processing.fast_color_harmony / the fast speed tier):
         # stride the entropy's pixel stream; every other statistic stays exact
         self.hs_subsample = hs_subsample
+        # the stats configuration, read once here (FACET_ENTROPY_IMPL)
+        self.entropy_impl = resolve_entropy_impl(entropy_impl)
         self._matrices = {}
 
     def _shape_matrices(self, h, w):
@@ -70,7 +74,8 @@ class FusedScorer:
         """(B, H, W, 3) uint8 on the device -> dict of un-fetched outputs.
         The float32 resizes, DCT and projection run in full float32."""
         rows, cols, hash_rows, hash_cols, dct = self._shape_matrices(*batch_u8.shape[1:3])
-        out = dict(zip(_STAT_KEYS, batch_stats(batch_u8, self.hs_subsample)))
+        out = dict(zip(_STAT_KEYS, batch_stats(batch_u8, self.hs_subsample,
+                                               self.entropy_impl)))
         with full_float32():
             gray = rgb_to_gray(batch_u8).to(torch.float32)
             out["hash_bits"] = hash_bits(low_frequencies(gray, hash_rows, hash_cols, dct))

@@ -6,8 +6,8 @@ EXIF once (decode of chunk N+1 overlaps the device work of chunk N), the
 fused clip pass scores every image with TOPIQ riding the same resident
 batch, then tagging, thumbnails, row assembly with the aggregate, and one
 SQLite transaction per chunk; after the scan the aggregates recompute from
-the merged rows. Progress reporting and the RAM monitor are the JAX
-package's host files, loaded through ``facet_tpu_torch._host``.
+the merged rows. Progress reporting and the RAM monitor are the port's
+copies of the JAX package's host modules.
 """
 
 import os
@@ -15,12 +15,10 @@ import time
 
 import numpy as np
 
-from facet_tpu.utils.exif import get_exif_batch
-from facet_tpu.utils.image_loading import load_image
-from facet_tpu_torch._host import load
-
-MetricsReporter = load("metrics_reporter").MetricsReporter
-MultiPassResourceMonitor = load("resource_monitor").MultiPassResourceMonitor
+from facet_tpu_torch.processing.metrics_reporter import MetricsReporter
+from facet_tpu_torch.processing.resource_monitor import MultiPassResourceMonitor
+from facet_tpu_torch.utils.exif import get_exif_batch
+from facet_tpu_torch.utils.image_loading import load_image
 
 PASS_NAMES = {
     "quality": ["clip", "topiq"],
@@ -98,7 +96,7 @@ class ChunkedMultiPassProcessor:
         """
         from PIL import Image as PILImage
 
-        from facet_tpu.utils import native_decode
+        from facet_tpu_torch.utils import native_decode
 
         t0 = time.time()
         images, pils, ok = [], [], []
@@ -278,7 +276,7 @@ class ChunkedMultiPassProcessor:
 
         # chunk thumbnails through the native threaded encoder when built;
         # per-image PIL inside assemble_row otherwise
-        from facet_tpu.utils import native_decode
+        from facet_tpu_torch.utils import native_decode
 
         thumbs = native_decode.encode_thumbnail_batch(
             images, self.scorer.thumb_size, self.scorer.thumb_quality)

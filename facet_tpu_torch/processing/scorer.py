@@ -8,28 +8,24 @@ set and the tag backfill from stored embeddings. Row assembly, persistence
 and the recompute are the JAX package's code, carried over; the device
 parts are the port's.
 
-Host code is shared: ``facet_tpu.db``, ``facet_tpu.config`` and the
-thumbnail, EXIF and tag utilities by plain import; the scoring brain and the
-composition analyzer through ``facet_tpu_torch._host``.
+Host code (database, config, thumbnails, tags, the scoring brain and the
+composition analyzer) comes from the port's own copies of the JAX package's
+host modules.
 """
 
 import os
 
-from facet_tpu.config.scoring_config import ScoringConfig
-from facet_tpu.db.connection import get_connection
-from facet_tpu.db.schema import init_database
-from facet_tpu.db.tags import sync_photo_tags
-from facet_tpu.utils.tags import tags_to_string
-from facet_tpu.utils.thumbnails import make_thumbnail
-from facet_tpu_torch._host import load
+from facet_tpu_torch.analyzers.composition import CompositionAnalyzer
 from facet_tpu_torch.analyzers.technical import TechnicalAnalyzer, recompute_exposure_score
+from facet_tpu_torch.config.scoring_config import ScoringConfig
+from facet_tpu_torch.db.connection import get_connection
+from facet_tpu_torch.db.schema import init_database
+from facet_tpu_torch.db.tags import sync_photo_tags
 from facet_tpu_torch.models.model_manager import ModelManager
+from facet_tpu_torch.scoring.brain import calculate_aggregate, determine_photo_category
 from facet_tpu_torch.scoring.vectorized import AggregateScorer
-
-_brain = load("brain")
-calculate_aggregate = _brain.calculate_aggregate
-determine_photo_category = _brain.determine_photo_category
-CompositionAnalyzer = load("composition").CompositionAnalyzer
+from facet_tpu_torch.utils.tags import tags_to_string
+from facet_tpu_torch.utils.thumbnails import make_thumbnail
 
 # Columns written by save_photos_batch, in insert order.
 ROW_COLUMNS = [
@@ -317,7 +313,7 @@ class Facet:
         # (reference: config/percentile_normalizer.py via scorer.py:1148+)
         normalizer = None
         if self.config.get_normalization_settings().get("method") == "percentile":
-            from facet_tpu.config.percentile_normalizer import PercentileNormalizer
+            from facet_tpu_torch.config.percentile_normalizer import PercentileNormalizer
 
             normalizer = PercentileNormalizer(self.db_path, self.config)
             normalizer.compute_percentiles()

@@ -4,21 +4,19 @@ Counterpart of ``facet_tpu/scoring/vectorized.py`` in plain PyTorch (no
 kernel): category weights become a (C, 16) matrix, per-category modifiers
 flag vectors, and every row scores as one gather + weighted reduction in
 float32. Category routing (string tag matching) stays on the host through
-``scoring/brain.py``, which is loaded by path (``facet_tpu_torch._host``) so
-the scoring semantics keep one source of truth.
+``scoring/brain.py``, the port's copy of the JAX package's.
 """
 
 import numpy as np
 import torch
 
-from facet_tpu_torch._host import load
-
-_brain = load("brain")
-FACE_CATEGORIES = _brain.FACE_CATEGORIES
-METRIC_KEYS = _brain.METRIC_KEYS
-_parse_iso = _brain._parse_iso
-determine_photo_category = _brain.determine_photo_category
-safe_float = _brain.safe_float
+from facet_tpu_torch.scoring.brain import (
+    FACE_CATEGORIES,
+    METRIC_KEYS,
+    _parse_iso,
+    determine_photo_category,
+    safe_float,
+)
 
 # Numeric per-photo inputs the device kernel consumes, with sanitize defaults.
 FIELD_DEFAULTS = {

@@ -15,7 +15,7 @@ Semantics per the reference (processing/scorer.py:1880-1986):
 
 from datetime import datetime
 
-from facet_tpu.db.connection import get_connection
+from facet_tpu_torch.db.connection import get_connection
 from facet_tpu_torch.ops.phash import hamming_distance
 
 

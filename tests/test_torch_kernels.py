@@ -1,8 +1,11 @@
-"""The port's two kernels: plain twins against the JAX Pallas kernels.
+"""The port's kernels: plain twins against the JAX Pallas kernels.
 
 On the CPU each wrapper computes its plain PyTorch twin; these tests hold
-the twins against facet_tpu's Pallas kernels run in interpret mode, at the
-shapes tests/test_pallas_entropy.py and tests/test_pallas_attn.py use.
+the twins against facet_tpu's Pallas kernels run as their own tests run
+them (interpret mode, or the XLA path of ``pallas_stats.fused_gray_stats``),
+at the shapes tests/test_pallas_entropy.py, test_pallas_fused_stats.py,
+test_pallas_stats.py and test_pallas_attn.py use, plus odd shapes (h*w % 4
+!= 0, 3x3). Histograms and integer sums must be identical.
 Tolerances: entropy within 1e-5 of the exact float64 value and within the
 atol=rtol=1e-5 the JAX tests pin against the JAX kernel (which itself sits
 up to 2.2e-5 from the exact value); attention 2e-3, the bound
@@ -21,7 +24,8 @@ import numpy as np
 import pytest
 import torch
 
-from facet_tpu_torch.ops import attention, entropy
+from facet_tpu_torch.ops import attention, entropy, fused_stats, gray_stats
+from facet_tpu_torch.ops.stats import split_total
 
 
 def _rand_hs(b, n, seed):
@@ -81,12 +85,105 @@ def test_entropy_histogram_and_wrapper_checks():
     with pytest.raises(ValueError):
         entropy.hs_entropy(torch.zeros(2, 4, dtype=torch.int32).t(),
                            torch.zeros(2, 4, dtype=torch.int32).t())
+    with pytest.raises(ValueError):
+        entropy.hs_entropy(torch.zeros(1, 4, dtype=torch.int32),
+                           torch.zeros(1, 4, dtype=torch.int32), n_valid=0)
 
 
 def test_entropy_no_in_range_pixel_is_zero():
     hh = np.full((1, 16), 200, np.int32)
     ss = np.zeros((1, 16), np.int32)
     assert entropy.hs_entropy(torch.from_numpy(hh), torch.from_numpy(ss)).item() == 0.0
+
+
+@pytest.mark.parametrize("case", ["oracle", "rgb", "n_valid"])
+def test_entropy_fixed_denominator_twin_matches_pallas(case):
+    """Kernel 3: the round-2 cases of tests/test_pallas_entropy.py, and one
+    with a fixed denominator over -1 markers (which count in n_valid but in
+    no bin)."""
+    from facet_tpu.ops.pallas_entropy import hs_entropy_pallas
+
+    n_valid = None
+    if case == "oracle":
+        hh, ss = _rand_hs(2, 4000, 0)      # forces padding to the 64K block
+    elif case == "rgb":
+        from facet_tpu_torch.ops.colorspace import rgb_to_hsv
+
+        rgb = np.random.default_rng(1).integers(0, 256, (2, 24, 32, 3)).astype(np.uint8)
+        h, s, _ = rgb_to_hsv(torch.from_numpy(rgb))
+        hh, ss = h.reshape(2, -1).numpy(), s.reshape(2, -1).numpy()
+    else:
+        hh, ss = _rand_hs(2, 3000, 5)
+        hh[:, 2500:] = -1
+        n_valid = 3000
+    want = np.asarray(hs_entropy_pallas(jnp.asarray(hh), jnp.asarray(ss),
+                                        n_valid=n_valid, interpret=True))
+    got = entropy.hs_entropy(torch.from_numpy(hh), torch.from_numpy(ss),
+                             n_valid=n_valid).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    if n_valid is None:
+        np.testing.assert_allclose(got, _oracle_entropy(hh, ss), atol=1e-5, rtol=0)
+    else:
+        counts = [np.bincount(h[h >= 0] * 256 + s[h >= 0]) for h, s in zip(hh, ss)]
+        exact = [-(c[c > 0] / n_valid * np.log2(c[c > 0] / n_valid)).sum() for c in counts]
+        np.testing.assert_allclose(got, exact, atol=1e-5, rtol=0)
+
+
+def _images(b, h, w, seed):
+    """tests/test_pallas_fused_stats.py's images: uniform noise with a gray
+    (diff = 0), a black (v = 0) and a pure red pixel."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8)
+    base[:, 0, 0] = 128
+    base[:, 0, 1] = 0
+    base[:, 0, 2] = [255, 0, 0]
+    return base
+
+
+@pytest.mark.parametrize("shape", [(2, 40, 56), (1, 64, 72), (1, 37, 53)])
+def test_fused_stats_twin_matches_pallas(shape):
+    """Kernel 4; (1, 37, 53) has h*w % 4 != 0, which the TPU kernel's packed
+    lanes never met in its own tests."""
+    from facet_tpu.ops.pallas_fused_stats import fused_stats_pallas
+    from facet_tpu.ops.stats import split_total as jsplit
+
+    imgs = _images(*shape, seed=3)
+    want = [np.asarray(x) for x in fused_stats_pallas(jnp.asarray(imgs), interpret=True)]
+    got = [t.numpy() for t in fused_stats.fused_stats(torch.from_numpy(imgs))]
+    np.testing.assert_array_equal(got[1], want[1])                 # gray hist
+    for i in range(shape[0]):
+        assert split_total(got[2][i], 12) == jsplit(want[2][i], 12)
+    np.testing.assert_allclose(got[0], want[0], atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(3, 120, 170), (1, 3, 3), (2, 37, 53)])
+def test_gray_stats_twin_matches_jax(shape):
+    """Kernel 5 against pallas_stats.fused_gray_stats on its XLA path."""
+    from facet_tpu.ops.pallas_stats import fused_gray_stats as jax_gray_stats
+
+    gray = np.random.default_rng(sum(shape)).integers(0, 256, shape, dtype=np.int32)
+    want = jax_gray_stats(jnp.asarray(gray))
+    got = gray_stats.fused_gray_stats(torch.from_numpy(gray))
+    assert got[0].dtype == torch.int32
+    assert all(t.dtype == torch.int64 for t in got[1:])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_stats_wrappers_check_inputs():
+    rgb = torch.zeros(1, 4, 5, 3, dtype=torch.uint8)
+    fused_stats.fused_stats(rgb)
+    gray_stats.fused_gray_stats(torch.zeros(1, 4, 5, dtype=torch.int32))
+    assert fused_stats.fused_stats.launches == 0     # the CPU never launches
+    assert gray_stats.fused_gray_stats.launches == 0
+    with pytest.raises(TypeError):
+        fused_stats.fused_stats(rgb.to(torch.int32))
+    with pytest.raises(ValueError):
+        fused_stats.fused_stats(torch.zeros(1, 4, 5, 4, dtype=torch.uint8))
+    with pytest.raises(TypeError):
+        gray_stats.fused_gray_stats(torch.zeros(1, 4, 5, dtype=torch.int64))
+    with pytest.raises(ValueError):
+        gray_stats.fused_gray_stats(torch.zeros(1, 1, 5, dtype=torch.int32))
 
 
 def _rand(shape, seed):
@@ -146,6 +243,36 @@ def test_entropy_kernel_matches_twin(cuda, stride):
     assert torch.equal(hist, entropy.hs_histogram_plain(hue, sat, stride))
     want = entropy.hs_entropy_plain(hue, sat, stride)
     assert float((got - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_entropy_fixed_denominator_kernel_matches_twin(cuda):
+    hh, ss = _rand_hs(3, 100_003, 8)
+    hh[:, -1000:] = -1
+    hue, sat = torch.from_numpy(hh).to(cuda), torch.from_numpy(ss).to(cuda)
+    got = entropy.hs_entropy(hue, sat, n_valid=100_003)
+    want = entropy.hs_entropy_plain(hue, sat, n_valid=100_003)
+    assert float((got - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 3, 3), (3, 37, 53), (2, 480, 641)])
+def test_fused_stats_kernel_matches_twin(cuda, shape):
+    rgb = torch.from_numpy(_images(*shape, seed=11)).to(cuda)
+    got = fused_stats.fused_stats(rgb)
+    want = fused_stats.fused_stats_plain(rgb)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert float((got[0] - want[0]).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 3, 3), (3, 37, 53), (2, 481, 641)])
+def test_gray_stats_kernel_matches_twin(cuda, shape):
+    gray = np.random.default_rng(sum(shape)).integers(0, 256, shape, dtype=np.int32)
+    gray = torch.from_numpy(gray).to(cuda)
+    for g, w in zip(gray_stats.fused_gray_stats(gray),
+                    gray_stats.fused_gray_stats_plain(gray)):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda

@@ -1,10 +1,11 @@
-"""facet_tpu_torch must run where jax is not installed.
+"""facet_tpu_torch must stand alone: no jax, and nothing of facet_tpu.
 
-A subprocess refuses every import of jax, jaxlib, flax and optax, imports
-facet_tpu_torch and every module under it, and runs a 2-image
-``--pass quality`` scan on the CPU. The files the port loads through
-``facet_tpu_torch._host`` must have no jax import in their own source, and
-no file of the package may import jax at all.
+A subprocess refuses every import of jax, jaxlib, flax, optax and
+facet_tpu, imports facet_tpu_torch and every module under it, and runs a
+2-image ``--pass quality`` scan on the CPU (``--device cpu``) in both stats
+configurations. No file of the package, and not chip_smoke.py, may import
+any of those roots or name the facet_tpu directory. Without a card, and
+without an explicit request for the CPU, the CLI and ModelManager fail.
 """
 
 import ast
@@ -15,12 +16,12 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
-BLOCKED = ("jax", "jaxlib", "flax", "optax")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "facet_tpu")
 
 SCRIPT = r'''
 import importlib, importlib.abc, json, os, pkgutil, sqlite3, sys
 
-BLOCKED = {"jax", "jaxlib", "flax", "optax"}
+BLOCKED = {"jax", "jaxlib", "flax", "optax", "facet_tpu"}
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -38,7 +39,7 @@ for info in pkgutil.walk_packages(facet_tpu_torch.__path__, "facet_tpu_torch."):
 
 import numpy as np
 from PIL import Image
-from facet_tpu.config.default_config import write_default_config
+from facet_tpu_torch.config.default_config import write_default_config
 
 os.makedirs("photos")
 rng = np.random.default_rng(0)
@@ -51,18 +52,27 @@ cfg["models"]["clip"]["architecture"] = {"image_size": 28, "patch_size": 14,
                                          "projection_dim": 768}
 json.dump(cfg, open("cfg.json", "w"))
 
-# the fast tier's TOPIQ at 128 px instead of 256: its C2 level (1024 queries
-# over 256 keys) still passes the kernel's gate, at a quarter of the work
+# TOPIQ at 128 px instead of 384 (exact tier) or 256 (fast tier): its C2
+# level (1024 queries over 256 keys) still passes the kernel's gate, at a
+# fraction of the work
+import functools
 from facet_tpu_torch.models import topiq
 topiq.FAST_TIER_INPUT_SIZE = 128
+topiq.TOPIQConfig = functools.partial(topiq.TOPIQConfig, input_size=128)
 
 from facet_tpu_torch.__main__ import main
-rc = main(["photos", "--pass", "quality", "--db", "scan.db", "--config", "cfg.json",
-           "--speed-tier", "fast"])
-rows = sqlite3.connect("scan.db").execute(
-    "SELECT topiq_score, phash, raw_color_entropy, aggregate FROM photos").fetchall()
+rcs, rows = [], []
+# the default stats configuration in the fast tier, then pallas_fused in the
+# exact tier (in the fast tier it runs the default configuration)
+for db, impl, tier in (("scan.db", "pallas", "fast"), ("fused.db", "pallas_fused", "exact")):
+    os.environ["FACET_ENTROPY_IMPL"] = impl
+    rcs.append(main(["photos", "--pass", "quality", "--db", db, "--config", "cfg.json",
+                     "--speed-tier", tier, "--device", "cpu"]))
+    rows.append(sqlite3.connect(db).execute(
+        "SELECT topiq_score, phash, raw_color_entropy, aggregate FROM photos"
+        " ORDER BY path").fetchall())
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
-print("RESULT " + json.dumps({"rc": rc, "modules": names, "rows": rows, "leaked": leaked}))
+print("RESULT " + json.dumps({"rcs": rcs, "modules": names, "rows": rows, "leaked": leaked}))
 '''
 
 
@@ -75,12 +85,16 @@ def test_port_runs_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr[-4000:]
     line = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")][-1]
     result = json.loads(line[len("RESULT "):])
-    assert result["rc"] == 0
+    assert result["rcs"] == [0, 0]
     assert result["leaked"] == []
     assert "facet_tpu_torch.ops.entropy" in result["modules"]
+    assert "facet_tpu_torch.ops.fused_stats" in result["modules"]
     assert "facet_tpu_torch.__main__" in result["modules"]
-    assert len(result["rows"]) == 2
-    assert all(v is not None for row in result["rows"] for v in row)
+    for rows in result["rows"]:
+        assert len(rows) == 2
+        assert all(v is not None for row in rows for v in row)
+    # the two scans share the integer statistics, hence the pHash
+    assert [r[1] for r in result["rows"][0]] == [r[1] for r in result["rows"][1]]
 
 
 def _imported_roots(path):
@@ -94,18 +108,55 @@ def _imported_roots(path):
     return roots
 
 
-def test_host_files_import_no_jax():
-    from facet_tpu_torch import _host
-
-    for name in _host.ALLOWED:
-        roots = _imported_roots(_host.source_path(name))
-        assert not roots & set(BLOCKED), (name, roots)
-        # nor anything of facet_tpu, whose package __init__s pull jax in
-        assert "facet_tpu" not in roots, (name, roots)
+def _names_facet_tpu_dir(path):
+    """True when a string in the file's code (docstrings aside) is exactly
+    the facet_tpu directory's name, as a path built to it would hold."""
+    tree = ast.parse(Path(path).read_text())
+    docstrings = {id(node.body[0].value) for node in ast.walk(tree)
+                  if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef))
+                  and node.body and isinstance(node.body[0], ast.Expr)}
+    return any(isinstance(node, ast.Constant) and node.value == "facet_tpu"
+               and id(node) not in docstrings for node in ast.walk(tree))
 
 
 def test_package_source_imports_no_jax():
-    for path in (REPO / "facet_tpu_torch").rglob("*.py"):
+    files = [*(REPO / "facet_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]
+    for path in files:
         assert not _imported_roots(path) & set(BLOCKED), path
-    # the smoke test drives the port alone: nothing of jax or facet_tpu
-    assert not _imported_roots(REPO / "chip_smoke.py") & {*BLOCKED, "facet_tpu"}
+        assert not _names_facet_tpu_dir(path), path
+    assert not (REPO / "facet_tpu_torch" / "_host.py").exists()
+
+
+NO_CARD = r'''
+import json, os, sys
+from facet_tpu_torch.__main__ import main
+from facet_tpu_torch.models.model_manager import ModelManager
+
+os.makedirs("photos")
+rc = main(["photos", "--pass", "quality", "--db", "x.db", "--config", "cfg.json"])
+try:
+    ModelManager()
+    manager = "no error"
+except RuntimeError as exc:
+    manager = str(exc)
+print("RESULT " + json.dumps({"rc": rc, "manager": manager,
+                              "cpu": str(ModelManager(device="cpu").device)}))
+'''
+
+
+def test_no_card_is_an_error_unless_cpu_is_asked_for(tmp_path):
+    """Without a usable card the CLI exits non-zero and ModelManager raises,
+    each naming --device cpu; asking for the CPU works."""
+    env = {k: v for k, v in os.environ.items() if k != "FACET_PLATFORM"}
+    env.update(PYTHONPATH=str(REPO), CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", NO_CARD], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")][-1]
+    result = json.loads(line[len("RESULT "):])
+    assert result["rc"] == 1
+    assert "no usable CUDA card" in proc.stderr and "--device cpu" in proc.stderr
+    assert "no usable CUDA card" in result["manager"]
+    assert "device='cpu'" in result["manager"]
+    assert result["cpu"] == "cpu"
+    assert not (tmp_path / "x.db").exists()

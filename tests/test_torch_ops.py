@@ -96,6 +96,45 @@ def test_batch_stats_match_jax(h, w, hs_subsample):
             assert split_total(got[k][j], shift) == jsplit(want[k][j], shift), k
 
 
+@pytest.mark.parametrize("entropy_impl", ["pallas", "pallas_fused"])
+@pytest.mark.parametrize("hs_subsample", [1, 4])
+def test_batch_stats_configurations_match_jax(entropy_impl, hs_subsample):
+    """Both stats configurations against facet_tpu's own (its Pallas kernels
+    in interpret mode): the same tuple, integers identical, entropy within
+    atol=rtol=1e-5. In the fast tier pallas_fused runs the pallas
+    configuration, on both sides."""
+    from facet_tpu.ops.stats import _batch_stats_impl
+    from facet_tpu.ops.stats import split_total as jsplit
+    from facet_tpu_torch.ops.stats import batch_stats, split_total
+
+    rgb = _photo_like(2, 37, 53, seed=7 + hs_subsample)
+    want = jax.device_get(_batch_stats_impl(
+        jnp.asarray(rgb), hs_subsample=hs_subsample, entropy_impl=entropy_impl))
+    got = [t.numpy() for t in batch_stats(torch.from_numpy(rgb), hs_subsample,
+                                          entropy_impl)]
+    np.testing.assert_array_equal(got[0], np.asarray(want[0]))
+    np.testing.assert_allclose(got[2], np.asarray(want[2]), atol=1e-5, rtol=1e-5)
+    for k, shift in ((1, 12), (3, 12), (4, 16), (5, 12)):
+        for j in range(2):
+            assert split_total(got[k][j], shift) == jsplit(want[k][j], shift), k
+
+
+def test_resolve_entropy_impl(monkeypatch):
+    from facet_tpu_torch.ops.stats import batch_stats, resolve_entropy_impl
+
+    monkeypatch.delenv("FACET_ENTROPY_IMPL", raising=False)
+    assert resolve_entropy_impl() == "pallas"
+    assert resolve_entropy_impl("pallas_fused") == "pallas_fused"
+    monkeypatch.setenv("FACET_ENTROPY_IMPL", "pallas_fused")
+    assert resolve_entropy_impl() == "pallas_fused"
+    for impl in ("xla", "none", "zero"):         # the TPU's measuring modes
+        monkeypatch.setenv("FACET_ENTROPY_IMPL", impl)
+        with pytest.raises(ValueError):
+            resolve_entropy_impl()
+        with pytest.raises(ValueError):
+            batch_stats(torch.zeros(1, 3, 3, 3, dtype=torch.uint8), 1, impl)
+
+
 def test_compute_batch_stats_groups_shapes():
     from facet_tpu.ops.stats import compute_batch_stats as jcompute
     from facet_tpu_torch.ops.stats import compute_batch_stats

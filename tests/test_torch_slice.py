@@ -7,7 +7,9 @@ TPU's main-path kernels, run in interpret mode). A tiny CLIP comes through
 the config's models.clip.architecture; TOPIQ at input 128 (whose C2 level,
 1024 queries over 256 keys, passes the kernel gate) through
 ModelManager.register with fallback_init(seed=30) parameters. The port runs
-the same pass with its own numpy fallback parameters.
+the same pass with its own numpy fallback parameters, in both of its stats
+configurations: the default (kernels 1 and 5) and, with
+FACET_ENTROPY_IMPL=pallas_fused, kernels 4 and 5 (their plain twins here).
 
 Every ``photos`` column is compared: integer and bytes columns identical;
 columns derived from the integer statistics within 1e-6; entropy-derived
@@ -114,13 +116,31 @@ def runs(photos):
         mp.undo()
 
 
-def test_every_row_and_column(runs, photos):
-    """Every column: the named float groups at their bounds, the embedding
-    at the bf16 bound, every other column (integers, bytes, text, flags,
-    NULLs) identical."""
-    _, files, _ = photos
-    _, _, want, got = runs
-    assert [r["path"] for r in got] == [r["path"] for r in want] == sorted(files)
+@pytest.fixture(scope="module")
+def fused_rows(runs, photos):
+    """The port's rows with FACET_ENTROPY_IMPL=pallas_fused, read when the
+    fused scorer is built, into a fresh database."""
+    root, files, cfg_path = photos
+    _, tfacet, _, _ = runs
+    mp = pytest.MonkeyPatch()
+    mp.setenv("FACET_ENTROPY_IMPL", "pallas_fused")
+    mp.chdir(root)
+    try:
+        from facet_tpu_torch.config.scoring_config import ScoringConfig
+        from facet_tpu_torch.processing.multi_pass import ChunkedMultiPassProcessor
+        from facet_tpu_torch.processing.scorer import Facet
+
+        facet = Facet(str(root / "torch_fused.db"), ScoringConfig(cfg_path),
+                      model_manager=tfacet.models)
+        ChunkedMultiPassProcessor(facet).run_single_pass(files, "quality", verbose=False)
+        assert facet._fused.entropy_impl == "pallas_fused"
+        return _rows(str(root / "torch_fused.db"))
+    finally:
+        mp.undo()
+
+
+def _assert_rows_match(got, want):
+    assert [r["path"] for r in got] == [r["path"] for r in want]
     assert set(got[0]) == set(want[0])
     for g, w in zip(got, want):
         assert g["scoring_model"] == "topiq"
@@ -137,7 +157,25 @@ def test_every_row_and_column(runs, photos):
                 assert diff.max() <= EMBEDDING_BF16_TOL
             else:
                 assert g[col] == w[col], col
+
+
+def test_every_row_and_column(runs, photos):
+    """Every column: the named float groups at their bounds, the embedding
+    at the bf16 bound, every other column (integers, bytes, text, flags,
+    NULLs) identical."""
+    _, files, _ = photos
+    _, _, want, got = runs
+    assert [r["path"] for r in want] == sorted(files)
+    _assert_rows_match(got, want)
     assert got[0]["histogram_data"] and got[0]["phash"] and got[0]["thumbnail"]
+
+
+@pytest.mark.parametrize("against", ["port_default", "facet_tpu"])
+def test_pallas_fused_rows_match(runs, fused_rows, against):
+    """The pallas_fused configuration writes the default configuration's
+    rows, and facet_tpu's, at the same bounds."""
+    _, _, jax_rows, torch_rows = runs
+    _assert_rows_match(fused_rows, torch_rows if against == "port_default" else jax_rows)
 
 
 def test_clip_aesthetic_bf16_bound(runs, photos):
@@ -165,7 +203,7 @@ def test_cli_quality_pass_and_refusals(photos, tmp_path, capsys):
     _, files, cfg_path = photos
     photo_dir = os.path.dirname(files[0])
     db = str(tmp_path / "cli.db")
-    args = ["--db", db, "--config", cfg_path]
+    args = ["--db", db, "--config", cfg_path, "--device", "cpu"]
     assert main([photo_dir, "--pass", "embeddings", "--limit", "2"] + args) == 0
     assert len(_rows(db)) == 2
     assert main([photo_dir] + args) == 2
