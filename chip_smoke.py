@@ -11,24 +11,34 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 3. kernels against their plain PyTorch twins on the card, at the main
    path's shapes and at odd small ones: kernel 1 (H-S entropy) and kernel 3
    (its fixed denominator), kernel 4 (one-pass RGB stats), kernel 5 (gray
-   stencil stats), kernel 2 (TOPIQ's cross-attention). Histograms and
-   integer sums must be identical, entropy within 1e-5, attention within
-   ATTN_TOL and ATTN_REL_RMS_TOL. Each reports the median times of kernel
-   and twin from CUDA events, its bound (the least time the card could take
-   for the same work) and, for kernel 2, the time of
-   F.scaled_dot_product_attention on the same inputs in bf16 (a yardstick
-   only: the port never calls it); then the whole statistics prepass is
-   timed in both configurations;
+   stencil stats), kernel 2 (TOPIQ's cross-attention), kernel 6 (the ViT's
+   row softmax) and kernel 7 (the ViT's fused attention). Histograms and
+   integer sums must be identical, entropy within 1e-5, kernel 2 within
+   ATTN_TOL and ATTN_REL_RMS_TOL, kernel 6 within one bf16 ulp element by
+   element, kernel 7 within one bf16 ulp of its output's magnitude and
+   VIT_ATTN_REL_RMS_TOL. Each reports the median times of kernel and twin
+   from CUDA events, its bound (the least time the card could take for the
+   same work) and, where one PyTorch call computes the same function, that
+   call's time on the same inputs (F.scaled_dot_product_attention for
+   kernels 2 and 7, torch.softmax for kernel 6: yardsticks only, the port
+   never calls them); then the whole statistics prepass is timed in both
+   configurations, and the ViT-L/14 forward under each attention schedule;
 4. the slice: ``python -m facet_tpu_torch <dir> --pass quality`` in-process
    over synthetic photos at full width (ViT-L/14 at 224 in bf16 with the
-   aesthetic head, TOPIQ at 384 in f32), in the default stats configuration
-   (kernels 1, 5 and 2 must launch, kernel 4 must not), then over the same
-   photos into a fresh database with FACET_ENTROPY_IMPL=pallas_fused
-   (kernels 4, 5 and 2 must launch, kernel 1 must not). Every row is
-   checked; the two scans' rows must agree (pHash and the integer-derived
-   columns identical, raw_color_entropy within 1e-5, stored scores within
-   1e-3); TOPIQ must run with TF32 off in both although the process keeps
-   torch's defaults.
+   aesthetic head, TOPIQ at 384 in f32), each scan into a fresh database:
+   the default configuration (kernels 1, 5 and 2 launch), then
+   FACET_ENTROPY_IMPL=pallas_fused (kernels 4, 5 and 2), then the ViT's
+   other attention schedules FACET_ATTN_IMPL=psoftmax (kernel 6) and
+   FACET_ATTN_IMPL=flash (kernel 7). Each scan's launch counts are checked
+   (kernels 6 and 7 launch once per ViT layer per forward, and in no other
+   scan). Every row is checked. The pallas_fused rows must agree with the
+   default's (pHash and the integer-derived columns identical,
+   raw_color_entropy within 1e-5, stored scores within 1e-3); the psoftmax
+   and flash rows too, on what the ViT does not feed (pHash, the
+   integer-derived columns, TOPIQ's scores), with each CLIP embedding at
+   cosine similarity EMBEDDING_MIN_COSINE or more to the default's. TOPIQ
+   must run with TF32 off in every scan although the process keeps torch's
+   defaults.
 
 The second-to-last line is the kernel report, a JSON object; the last line
 is {"ok": true, "device": {...}}.
@@ -46,8 +56,11 @@ import time
 import numpy as np
 import torch
 
-from facet_tpu_torch.ops import attention, cuda_build, entropy, fused_stats, gray_stats
+from facet_tpu_torch.models.clip import CLIPVisionConfig
+from facet_tpu_torch.ops import (
+    attention, cuda_build, entropy, flash_attention, fused_stats, gray_stats, softmax)
 from facet_tpu_torch.ops.colorspace import rgb_to_gray, rgb_to_hsv
+from facet_tpu_torch.ops.precision import full_float32
 from facet_tpu_torch.ops.stats import ENTROPY_IMPLS, batch_stats
 
 # Kernel 2 against its twin, two limits. The two-pass design rounds p to
@@ -62,8 +75,20 @@ from facet_tpu_torch.ops.stats import ENTROPY_IMPLS, batch_stats
 # the CPU at (4, 4, 9216, 2304, 64)); ATTN_REL_RMS_TOL sits between.
 ATTN_TOL = 1e-3
 ATTN_REL_RMS_TOL = 3e-4
+# Kernel 7 against its twin, two limits, chosen as kernel 2's were: both
+# round p to bf16 after normalizing it, so what remains is f32 summation
+# and exp rounding, which now and then flips one bf16 rounding; the largest
+# error is held to one bf16 ulp of the output's largest magnitude, and the
+# error's RMS relative to the output's to VIT_ATTN_REL_RMS_TOL, which sits
+# between the sound kernel (6.1e-5 for the twin against the Pallas kernel
+# on the CPU, tests/test_torch_kernels.py) and a planted variant that rounds
+# p before normalizing it (3e-3 there), emulated here in plain PyTorch.
+VIT_ATTN_REL_RMS_TOL = 3e-4
+ROW_SUM_TOL = 1e-2
+EMBEDDING_MIN_COSINE = 0.999
 ENTROPY_TOL = 1e-5
 SCORE_TOL = 1e-3
+VIT_LAYERS = CLIPVisionConfig().layers
 SCAN_SHAPES = ((1024, 1536), (768, 1024))
 SCAN_COUNTS = (24, 8)
 
@@ -78,6 +103,8 @@ FP32_OPS = 67e12
 # an absolute value and three sums; kernel 4 computes gray, V, min, diff, S,
 # H with its branch and fix-up, two bins and a sum
 OPS_PER_PIXEL = {"hs_entropy": 4, "gray_stats": 26, "fused_stats": 40}
+# kernel 6, per score: a max, a subtraction, an exp, a sum and a division
+SOFTMAX_OPS_PER_ELEMENT = 5
 
 
 def bound(bytes_moved, ops, ops_per_s):
@@ -358,6 +385,116 @@ def check_attention(gpu):
     return report
 
 
+def bf16_ulp(x):
+    """One bf16 ulp (8 significant bits) at |x|, elementwise."""
+    return torch.ldexp(torch.ones_like(x), torch.frexp(x.abs())[1] - 8)
+
+
+def check_softmax(gpu):
+    """Kernel 6 vs its twin: the ViT's scores at the scan's batches (the
+    reported time is the first) and (3, 3, 37, 53) for odd rows, bf16 at
+    the ViT's scale (x4, as tests/test_pallas_softmax.py makes them). Every
+    element within one bf16 ulp of the twin, row sums within ROW_SUM_TOL.
+    Its bound: the scores read once and the probabilities written once; its
+    library yardstick: torch.softmax on the same bf16 tensor."""
+    report = {"max_abs_err": 0.0}
+    cases = [(n, 16, 257, 257) for n in SCAN_COUNTS] + [(3, 3, 37, 53)]
+    for shape in cases:
+        g = torch.Generator(device="cuda").manual_seed(sum(shape))
+        s = (torch.randn(shape, generator=g, device="cuda") * 4.0).to(torch.bfloat16)
+        got = softmax.softmax(s).float()
+        want = softmax.softmax_plain(s).float()
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        if not (diff <= bf16_ulp(torch.maximum(got.abs(), want.abs()))).all():
+            raise AssertionError(f"softmax differs by more than one bf16 ulp at {shape}")
+        row_err = float((got.sum(-1) - 1.0).abs().max())
+        if row_err > ROW_SUM_TOL:
+            raise AssertionError(f"softmax row sums off by {row_err} at {shape}")
+        err = float(diff.max())
+        n_diff = int((diff > 0).sum())
+        report["max_abs_err"] = max(report["max_abs_err"], err)
+        ms = cuda_median_ms(lambda: softmax.softmax(s))
+        plain_ms = cuda_median_ms(lambda: softmax.softmax_plain(s))
+        library_ms = cuda_median_ms(lambda: torch.softmax(s, dim=-1))
+        bound_ms, bound_by = bound(s.numel() * 2 * 2,
+                                   s.numel() * SOFTMAX_OPS_PER_ELEMENT, FP32_OPS)
+        phase("kernels", f"softmax {shape}: within one bf16 ulp, {n_diff} of "
+                         f"{s.numel()} elements differ, max|d|={err:.3g}, max|row "
+                         f"sum - 1|={row_err:.3g}, kernel {ms:.4f} ms, twin "
+                         f"{plain_ms:.3f} ms, torch.softmax {library_ms:.4f} ms, "
+                         f"bound {bound_ms:.4f} ms ({bound_by}) ({gpu})")
+        if "ms" not in report:
+            report.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=library_ms)
+        del s, got, want, diff
+    return report
+
+
+def round_then_normalize(q, k, v, scale):
+    """The planted variant of kernel 7's rounding points: p rounded to bf16
+    before it is normalized (the order of the TPU kernel's multi-block
+    schedule), in plain PyTorch."""
+    qf, kf, vf = (t.transpose(1, 2).float() for t in (q, k, v))
+    with full_float32():
+        s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        out = torch.matmul(e.to(torch.bfloat16).float(), vf) / e.sum(dim=-1, keepdim=True)
+    return out.to(q.dtype).transpose(1, 2)
+
+
+def check_vit_attention(gpu):
+    """Kernel 7 vs its twin: the ViT's (B, 257, 16, 64) at the scan's
+    batches (the reported time is the first) and (2, 37, 16, 64) for a
+    ragged last query tile. Its bound: q, k, v and out in bf16 read or
+    written once against 4*B*H*S*S*D bf16 tensor-core FLOP; its library
+    yardstick: F.scaled_dot_product_attention on the same bf16 tensors in
+    (B, H, S, D) with the same scale."""
+    report = {"max_abs_err": 0.0}
+    cases = [(n, 257, 16, 64) for n in SCAN_COUNTS] + [(2, 37, 16, 64)]
+    scale = 64 ** -0.5
+    for b, s, h, d in cases:
+        g = torch.Generator(device="cuda").manual_seed(b * s)
+        q, k, v = (torch.randn((b, s, h, d), generator=g, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        got = flash_attention.flash_attention(q, k, v, scale)
+        want = flash_attention.flash_attention_plain(q, k, v, scale)
+        planted = round_then_normalize(q, k, v, scale)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise AssertionError("flash_attention produced non-finite values")
+        err, rel_rms = attention_errors(got.float(), want.float())
+        _, planted_rms = attention_errors(planted.float(), want.float())
+        limit = float(bf16_ulp(want.float().abs().max()))
+        if err > limit or rel_rms > VIT_ATTN_REL_RMS_TOL:
+            raise AssertionError(
+                f"flash_attention max|d| {err} (limit {limit}), relative RMS "
+                f"{rel_rms} (limit {VIT_ATTN_REL_RMS_TOL}) at {(b, s, h, d)}")
+        if planted_rms <= VIT_ATTN_REL_RMS_TOL:
+            raise AssertionError(f"the relative RMS limit does not reject the planted "
+                                 f"variant ({planted_rms}) at {(b, s, h, d)}")
+        report["max_abs_err"] = max(report["max_abs_err"], err)
+        ms = cuda_median_ms(lambda: flash_attention.flash_attention(q, k, v, scale))
+        plain_ms = cuda_median_ms(
+            lambda: flash_attention.flash_attention_plain(q, k, v, scale))
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        library_ms = cuda_median_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
+                                                                     scale=scale))
+        bound_ms, bound_by = bound(4 * b * s * h * d * 2, 4 * b * h * s * s * d, BF16_FLOPS)
+        phase("kernels", f"flash_attention ({b},{s},{h},{d}): max|d|={err:.3g} "
+                         f"(limit {limit:.3g}), relative RMS {rel_rms:.3g} (limit "
+                         f"{VIT_ATTN_REL_RMS_TOL}; planted variant {planted_rms:.3g}), "
+                         f"kernel {ms:.4f} ms, twin {plain_ms:.3f} ms, SDPA bf16 "
+                         f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
+                         f"({gpu})")
+        if "ms" not in report:
+            report.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=library_ms)
+        del q, k, v, qt, kt, vt, got, want, planted
+    return report
+
+
 def time_prepass(gpu):
     """The whole statistics prepass (ops/stats.py:batch_stats) in both
     configurations at the scan's batches, as the fused pass calls it: the
@@ -370,13 +507,51 @@ def time_prepass(gpu):
             f"{impl} {ms:.3f} ms" for impl, ms in times.items()) + f" ({gpu})")
 
 
+def time_vit(gpu):
+    """The ViT-L/14 forward (bf16, random weights from the fallback init)
+    at the scan's batch of 24, and one of its 24 attention layers alone
+    (projections included, on a (24, 257, 1024) bf16 input), under each
+    attention schedule, timed in turns (xla, psoftmax, flash, then back):
+    the layer that kernels 6 and 7 serve."""
+    from facet_tpu_torch import params as P
+    from facet_tpu_torch.models.clip import ATTN_IMPLS, CLIPVisionTower
+
+    config = CLIPVisionConfig()
+    tower = CLIPVisionTower(config, torch.bfloat16)
+    P.fallback_init(tower, seed=0)
+    tower = tower.cuda().eval()
+    b = SCAN_COUNTS[0]
+    g = torch.Generator(device="cuda").manual_seed(224)
+    x = torch.randn((b, config.image_size, config.image_size, 3), generator=g,
+                    device="cuda")
+    y = torch.randn((b, config.seq_len, config.width), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    attn = tower.blocks[0].attn
+    forward = {impl: [] for impl in ATTN_IMPLS}
+    layer = {impl: [] for impl in ATTN_IMPLS}
+    with torch.no_grad():
+        for impl in ATTN_IMPLS + ATTN_IMPLS[::-1]:
+            forward[impl].append(cuda_median_ms(lambda: tower(x, impl)))
+            layer[impl].append(cuda_median_ms(lambda: attn(y, impl)))
+    for impl in ATTN_IMPLS:
+        share = config.layers * np.mean(layer[impl]) / np.mean(forward[impl])
+        phase("kernels", f"ViT-L/14 B={b} {impl}: forward " + " / ".join(
+            f"{ms:.3f}" for ms in forward[impl]) + " ms, one attention layer " +
+            " / ".join(f"{ms:.4f}" for ms in layer[impl]) + f" ms (x{config.layers}: "
+            f"{share:.1%} of the forward) ({gpu})")
+    del tower, x, y, attn
+
+
 def phase_kernels(gpu):
     report = {"hs_entropy": check_entropy(gpu),
               "hs_entropy_fixed": check_entropy_fixed(gpu),
               "fused_stats": check_fused_stats(gpu),
               "gray_stats": check_gray_stats(gpu),
-              "cross_attention": check_attention(gpu)}
+              "cross_attention": check_attention(gpu),
+              "softmax": check_softmax(gpu),
+              "flash_attention": check_vit_attention(gpu)}
     time_prepass(gpu)
+    time_vit(gpu)
     torch.cuda.empty_cache()       # the rider sizes its slices from free memory
     return report
 
@@ -398,11 +573,26 @@ COUNTERS = {"hs_entropy": (entropy.hs_entropy, "launches"),
             "hs_entropy_fixed": (entropy.hs_entropy, "launches_fixed"),
             "fused_stats": (fused_stats.fused_stats, "launches"),
             "gray_stats": (gray_stats.fused_gray_stats, "launches"),
-            "cross_attention": (attention.cross_attention, "launches")}
-# kernels each stats configuration's scan must launch, and must not
-SCAN_CONFIGS = {
-    "pallas": ({"hs_entropy", "gray_stats", "cross_attention"}, {"fused_stats"}),
-    "pallas_fused": ({"fused_stats", "gray_stats", "cross_attention"}, {"hs_entropy"}),
+            "cross_attention": (attention.cross_attention, "launches"),
+            "softmax": (softmax.softmax, "launches"),
+            "flash_attention": (flash_attention.flash_attention, "launches")}
+# the scans, in order: name -> (environment, kernels the scan must launch,
+# kernels it must not); kernels 6 and 7 launch in their own scan only, once
+# per ViT layer per forward
+_VIT_ATTENTION = {"softmax", "flash_attention"}
+SCANS = {
+    "pallas": ({"FACET_ENTROPY_IMPL": "pallas"},
+               {"hs_entropy", "gray_stats", "cross_attention"},
+               {"fused_stats"} | _VIT_ATTENTION),
+    "pallas_fused": ({"FACET_ENTROPY_IMPL": "pallas_fused"},
+                     {"fused_stats", "gray_stats", "cross_attention"},
+                     {"hs_entropy"} | _VIT_ATTENTION),
+    "psoftmax": ({"FACET_ENTROPY_IMPL": "pallas", "FACET_ATTN_IMPL": "psoftmax"},
+                 {"hs_entropy", "gray_stats", "cross_attention", "softmax"},
+                 {"fused_stats", "flash_attention"}),
+    "flash": ({"FACET_ENTROPY_IMPL": "pallas", "FACET_ATTN_IMPL": "flash"},
+              {"hs_entropy", "gray_stats", "cross_attention", "flash_attention"},
+              {"fused_stats", "softmax"}),
 }
 ROW_COLUMNS = ("path", "aesthetic", "topiq_score", "quality_score", "phash",
                "raw_color_entropy", "color_score", "aggregate", "scoring_model",
@@ -410,7 +600,7 @@ ROW_COLUMNS = ("path", "aesthetic", "topiq_score", "quality_score", "phash",
                "histogram_bimodality", "exposure_score", "shadow_clipped",
                "highlight_clipped", "is_silhouette", "raw_sharpness_variance",
                "tech_sharpness", "noise_sigma", "mean_saturation", "is_monochrome",
-               "contrast_score", "dynamic_range_stops")
+               "contrast_score", "dynamic_range_stops", "clip_embedding", "tags")
 # columns the two stats configurations must write identically: the pHash
 # and everything derived from the integer statistics alone
 EXACT_COLUMNS = ("phash", "histogram_data", "histogram_spread", "mean_luminance",
@@ -419,6 +609,8 @@ EXACT_COLUMNS = ("phash", "histogram_data", "histogram_spread", "mean_luminance"
                  "tech_sharpness", "noise_sigma", "mean_saturation", "is_monochrome",
                  "contrast_score", "dynamic_range_stops")
 SCORE_COLUMNS = ("aesthetic", "topiq_score", "quality_score", "color_score", "aggregate")
+# scores the ViT does not feed in a --pass quality scan: TOPIQ's
+TOPIQ_COLUMNS = ("aesthetic", "topiq_score", "quality_score")
 
 
 def tf32_flags():
@@ -426,16 +618,17 @@ def tf32_flags():
 
 
 def run_scan(photo_dir, db, cfg, impl, gpu):
-    """One --pass quality scan with FACET_ENTROPY_IMPL=impl -> (rows,
+    """One --pass quality scan in the environment SCANS[impl] -> (rows,
     launches). Counts are zeroed just before and read just after."""
     from facet_tpu_torch.__main__ import main as cli_main
     from facet_tpu_torch.models.topiq import TOPIQNet
 
+    env, must, must_not = SCANS[impl]
     in_topiq = []     # the flags as TOPIQ's forward sees them, during the scan
     hook = torch.nn.modules.module.register_module_forward_pre_hook(
         lambda module, _: in_topiq.append(tf32_flags())
         if isinstance(module, TOPIQNet) else None)
-    os.environ["FACET_ENTROPY_IMPL"] = impl
+    os.environ.update(env)
     for fn, attr in COUNTERS.values():
         setattr(fn, attr, 0)
     torch.cuda.synchronize()
@@ -445,7 +638,8 @@ def run_scan(photo_dir, db, cfg, impl, gpu):
     seconds = time.time() - t0
     launches = {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
     hook.remove()
-    del os.environ["FACET_ENTROPY_IMPL"]
+    for key in env:
+        del os.environ[key]
     if rc != 0:
         raise AssertionError(f"scan ({impl}) exited {rc}")
     conn = sqlite3.connect(db)
@@ -454,15 +648,18 @@ def run_scan(photo_dir, db, cfg, impl, gpu):
     conn.close()
     for row in rows:
         if any(row[c] is None for c in ("aesthetic", "topiq_score", "phash",
-                                        "raw_color_entropy", "aggregate")):
+                                        "raw_color_entropy", "aggregate",
+                                        "clip_embedding")):
             raise AssertionError(f"null column in row {row['path']} ({impl})")
         if row["scoring_model"] != "topiq":
             raise AssertionError(f"row scored by {row['scoring_model']!r}, not "
                                  f"topiq: {row['path']} ({impl})")
-    must, must_not = SCAN_CONFIGS[impl]
     for name in must:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched during the {impl} scan")
+        if name in _VIT_ATTENTION and launches[name] % VIT_LAYERS:
+            raise AssertionError(f"kernel {name} launched {launches[name]} times during "
+                                 f"the {impl} scan, not a multiple of {VIT_LAYERS}")
     for name in must_not:
         if launches[name] != 0:
             raise AssertionError(f"kernel {name} launched {launches[name]} times "
@@ -500,6 +697,34 @@ def compare_rows(got, want):
     return worst
 
 
+def compare_attention_rows(got, want, impl):
+    """A scan under another ViT attention schedule against the default's:
+    what the ViT does not feed is unchanged, and each CLIP embedding keeps
+    its direction. Photos whose tags differ are counted, not failed."""
+    if [r["path"] for r in got] != [r["path"] for r in want]:
+        raise AssertionError(f"the {impl} scan wrote other photos than the default")
+    worst = {"score": 0.0, "cosine": 1.0, "tags_differ": 0}
+    for g, w in zip(got, want):
+        for col in EXACT_COLUMNS:
+            if g[col] != w[col]:
+                raise AssertionError(f"{col} differs between the {impl} and default "
+                                     f"scans at {g['path']}")
+        for col in TOPIQ_COLUMNS:
+            d = abs(g[col] - w[col])
+            if d > SCORE_TOL:
+                raise AssertionError(f"{col} differs by {d} at {g['path']} ({impl})")
+            worst["score"] = max(worst["score"], d)
+        a = np.frombuffer(g["clip_embedding"], np.float32).astype(np.float64)
+        b = np.frombuffer(w["clip_embedding"], np.float32).astype(np.float64)
+        cosine = float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+        if not cosine >= EMBEDDING_MIN_COSINE:
+            raise AssertionError(f"clip_embedding cosine {cosine} < {EMBEDDING_MIN_COSINE} "
+                                 f"at {g['path']} ({impl})")
+        worst["cosine"] = min(worst["cosine"], cosine)
+        worst["tags_differ"] += g["tags"] != w["tags"]
+    return worst
+
+
 def phase_scan(gpu):
     phase("scan", f"process TF32 flags (cudnn, matmul), torch's defaults: "
                   f"{tf32_flags()}")
@@ -509,7 +734,7 @@ def phase_scan(gpu):
         paths = write_photos(photo_dir)
         cfg = os.path.join(tmp, "scoring_config.json")
         scans = {impl: run_scan(photo_dir, os.path.join(tmp, f"{impl}.db"), cfg,
-                                impl, gpu) for impl in SCAN_CONFIGS}
+                                impl, gpu) for impl in SCANS}
     for rows, _ in scans.values():
         if len(rows) != len(paths):
             raise AssertionError(f"{len(rows)} rows for {len(paths)} photos")
@@ -518,6 +743,13 @@ def phase_scan(gpu):
                   f"columns identical, max|d raw_color_entropy|="
                   f"{worst['raw_color_entropy']:.3g} (tol {ENTROPY_TOL}), max|d "
                   f"score|={worst['scores']:.3g} (tol {SCORE_TOL})")
+    for impl in ("psoftmax", "flash"):
+        worst = compare_attention_rows(scans[impl][0], scans["pallas"][0], impl)
+        phase("scan", f"{impl} rows against the default's: pHash and integer columns "
+                      f"identical, max|d TOPIQ score|={worst['score']:.3g} (tol "
+                      f"{SCORE_TOL}), min clip_embedding cosine {worst['cosine']:.6f} "
+                      f"(limit {EMBEDDING_MIN_COSINE}), tags differ on "
+                      f"{worst['tags_differ']} of {len(paths)} photos")
     return {impl: launches for impl, (_, launches) in scans.items()}
 
 
@@ -534,6 +766,10 @@ KERNELS = {
                    "facet_tpu/ops/pallas_stats.py:168", "pallas"),
     "cross_attention": ("facet_tpu_torch/csrc/cross_attention.cu",
                         "facet_tpu/ops/pallas_attn.py:96", "pallas"),
+    "softmax": ("facet_tpu_torch/csrc/row_softmax.cu",
+                "facet_tpu/ops/pallas_softmax.py:53", "psoftmax"),
+    "flash_attention": ("facet_tpu_torch/csrc/vit_attention.cu",
+                        "facet_tpu/models/clip.py:60", "flash"),
 }
 
 

@@ -82,10 +82,11 @@ class AestheticScorer:
                 "normalize_input": self.head.normalize_input}
 
     @torch.no_grad()
-    def forward_crops(self, crops):
+    def forward_crops(self, crops, attn_impl="xla"):
         """(B, 224, 224, 3) f32 crops in [0, 255] on the device ->
-        (aesthetic (B,), normalized embedding (B, 768)), un-fetched."""
-        features = self.vision(normalize_pixels(crops))
+        (aesthetic (B,), normalized embedding (B, 768)), un-fetched.
+        ``attn_impl``: the ViT's attention schedule (models/clip.py)."""
+        features = self.vision(normalize_pixels(crops), attn_impl)
         aesthetic = aesthetic_from_raw(self.head(features)[:, 0])
         return aesthetic, features / torch.linalg.norm(features, dim=-1, keepdim=True)
 

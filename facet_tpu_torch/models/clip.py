@@ -1,16 +1,24 @@
 """CLIP vision tower (ViT-L/14 by default) in PyTorch.
 
-Counterpart of ``facet_tpu/models/clip.py`` (``CLIPVisionTower`` and the
-xla attention path). Parameters stay float32; compute runs in ``dtype``
-(bfloat16 on the engine's path, as ``AestheticScorer`` runs it) with the
-JAX package's casting points: bf16 pixels into the patch embedding,
-LayerNorms in float32 (``ln_pre`` cast back to ``dtype``), q/k/v, logits,
-softmax and the attention product in ``dtype``, and the final projection
-in float32. Attention is plain ``matmul`` + ``softmax``; whether a fused
-attention serves better is a question for a measured later change.
+Counterpart of ``facet_tpu/models/clip.py`` (``CLIPVisionTower`` and its
+three attention schedules). Parameters stay float32; compute runs in
+``dtype`` (bfloat16 on the engine's path, as ``AestheticScorer`` runs it)
+with the JAX package's casting points: bf16 pixels into the patch
+embedding, LayerNorms in float32 (``ln_pre`` cast back to ``dtype``), q/k/v
+and the attention in ``dtype``, and the final projection in float32.
+
+The attention schedule (``FACET_ATTN_IMPL``, ``resolve_attn_impl``) is an
+argument of ``forward``, not a module attribute, so one tower serves every
+schedule with the same parameters:
+
+- ``xla``: logits of the pre-scaled q in ``dtype``, ``torch.softmax``, P V;
+- ``psoftmax``: the same logits through kernel 6 (``ops/softmax.py``);
+- ``flash``: unscaled q, k, v through kernel 7 (``ops/flash_attention.py``).
 """
 
+import os
 from dataclasses import dataclass
+from functools import partial
 
 import numpy as np
 import torch
@@ -18,6 +26,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from facet_tpu_torch import params as P
+from facet_tpu_torch.ops.flash_attention import flash_attention
+from facet_tpu_torch.ops.softmax import softmax
+
+# the row softmax of each materialized-logits schedule; "flash" fuses its own
+_SOFTMAX = {"xla": partial(torch.softmax, dim=-1), "psoftmax": softmax}
+ATTN_IMPLS = (*_SOFTMAX, "flash")
 
 
 @dataclass(frozen=True)
@@ -60,6 +74,42 @@ CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
 
 
+def resolve_attn_impl(impl="auto", seq_len=CLIPVisionConfig().seq_len):
+    """The ViT's attention schedule: ``FACET_ATTN_IMPL`` when set, else
+    ``impl``; "auto" is "xla". Anything but ATTN_IMPLS raises.
+
+    Under "flash", ``FACET_FLASH_BLOCK`` is the TPU kernel's key block. Below
+    the padded sequence length (``seq_len`` rounded up to 128) it splits the
+    keys into several blocks that the TPU kernel combines by an online
+    rescale, with other rounding points; kernel 7 computes only the
+    one-block schedule, so those values raise too."""
+    impl = os.environ.get("FACET_ATTN_IMPL", impl)
+    if impl == "auto":
+        impl = "xla"
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"FACET_ATTN_IMPL={impl!r} has no counterpart in "
+                         f"facet_tpu_torch: the port runs {ATTN_IMPLS}")
+    block = os.environ.get("FACET_FLASH_BLOCK")
+    padded = -(-seq_len // 128) * 128
+    if impl == "flash" and block is not None and int(block) < padded:
+        raise ValueError(
+            f"FACET_FLASH_BLOCK={block} splits the {padded} padded keys into "
+            f"several blocks; facet_tpu_torch computes the one-block schedule only "
+            f"(unset it, or set it to {padded} or more)")
+    return impl
+
+
+def check_quant_impl():
+    """``FACET_CLIP_INT8`` set truthy selects the JAX package's int8
+    projection tier, which is not ported: raise rather than compute exact
+    bf16 under that name."""
+    env = os.environ.get("FACET_CLIP_INT8")
+    if env is not None and env not in ("", "0", "false"):
+        raise NotImplementedError(
+            f"FACET_CLIP_INT8={env!r}: the int8 projection tier is not ported to "
+            f"facet_tpu_torch (ROADMAP Queue 1 #10); unset it")
+
+
 def _linear(x, layer, dtype):
     """flax Dense(dtype=...): input and params cast to the compute dtype."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
@@ -75,20 +125,20 @@ class Attention(nn.Module):
         self.v_proj = nn.Linear(width, width)
         self.out_proj = nn.Linear(width, width)
 
-    def forward(self, x):
+    def forward(self, x, attn_impl="xla"):
         b, s, _ = x.shape
         head_dim = self.width // self.heads
-
-        def split(t):
-            return t.view(b, s, self.heads, head_dim).transpose(1, 2)
-
-        q = split(_linear(x, self.q_proj, self.dtype))
-        k = split(_linear(x, self.k_proj, self.dtype))
-        v = split(_linear(x, self.v_proj, self.dtype))
-        logits = torch.matmul(q * head_dim ** -0.5, k.transpose(-1, -2))
-        weights = torch.softmax(logits, dim=-1).to(self.dtype)
-        out = torch.matmul(weights, v).transpose(1, 2).reshape(b, s, self.width)
-        return _linear(out, self.out_proj, self.dtype)
+        scale = head_dim ** -0.5
+        q, k, v = (_linear(x, layer, self.dtype).view(b, s, self.heads, head_dim)
+                   for layer in (self.q_proj, self.k_proj, self.v_proj))
+        if attn_impl == "flash":
+            out = flash_attention(q, k, v, scale)               # (B, S, H, D)
+        else:
+            q, k, v = (t.transpose(1, 2) for t in (q, k, v))    # (B, H, S, D)
+            logits = torch.matmul(q * scale, k.transpose(-1, -2))
+            weights = _SOFTMAX[attn_impl](logits).to(self.dtype)
+            out = torch.matmul(weights, v).transpose(1, 2)
+        return _linear(out.reshape(b, s, self.width), self.out_proj, self.dtype)
 
     def flax_layout(self, path):
         return [leaf for name in ("q_proj", "k_proj", "v_proj", "out_proj")
@@ -118,8 +168,8 @@ class Block(nn.Module):
         self.ln2 = nn.LayerNorm(width, eps=1e-5)
         self.mlp = MLP(width, int(width * mlp_ratio), dtype)
 
-    def forward(self, x):
-        x = x + self.attn(self.ln1(x.float()))
+    def forward(self, x, attn_impl="xla"):
+        x = x + self.attn(self.ln1(x.float()), attn_impl)
         return x + self.mlp(self.ln2(x.float()))
 
     def flax_layout(self, path):
@@ -146,7 +196,7 @@ class CLIPVisionTower(nn.Module):
         self.ln_post = nn.LayerNorm(c.width, eps=1e-5)
         self.projection = nn.Parameter(torch.zeros(c.width, c.projection_dim))
 
-    def forward(self, pixels):
+    def forward(self, pixels, attn_impl="xla"):
         dt = self.dtype
         x = F.conv2d(pixels.to(dt).permute(0, 3, 1, 2),
                      self.patch_embed.weight.to(dt), stride=self.config.patch_size)
@@ -156,7 +206,7 @@ class CLIPVisionTower(nn.Module):
         x = torch.cat([cls, x], dim=1) + self.position_embedding.to(dt)
         x = self.ln_pre(x.float()).to(dt)
         for block in self.blocks:
-            x = block(x)
+            x = block(x, attn_impl)
         pooled = self.ln_post(x[:, 0].float())
         return pooled @ self.projection
 

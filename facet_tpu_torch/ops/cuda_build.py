@@ -27,12 +27,15 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # C entry point -> argument types (pointers and the stream are c_void_p)
 SIGNATURES = {
     "facet_hs_entropy": [_P, _P, _P, _P, _I, _L, _I, _I, _L, _P],
     "facet_cross_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "facet_gray_stats": [_P, _P, _P, _I, _I, _I, _I, _P],
     "facet_fused_stats": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _P],
+    "facet_row_softmax": [_P, _P, _L, _I, _P],
+    "facet_vit_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 
 _lib = None

@@ -6,7 +6,10 @@ Counterpart of ``facet_tpu/processing/device_pipeline.py``
 256 it computes the technical statistics (kernels 1 and 5, or 4 and 5 with
 ``FACET_ENTROPY_IMPL=pallas_fused``; see ``ops/stats.py``), the pHash bits,
 the CLIP crop (separable-matmul resize), the ViT forward, the aesthetic
-head and the normalized embedding.
+head and the normalized embedding. The ViT's attention schedule
+(``FACET_ATTN_IMPL``: xla, or kernel 6 with ``psoftmax``, or kernel 7 with
+``flash``; see ``models/clip.py``) is read once per scorer, as the JAX
+package reads it once per fused pipeline.
 
 Joint dispatch: the uint8 chunk crosses host->device once; the fused work
 and every rider (TOPIQ) are launched on that same CUDA tensor back to back,
@@ -21,6 +24,7 @@ waste work.
 import numpy as np
 import torch
 
+from facet_tpu_torch.models.clip import check_quant_impl, resolve_attn_impl
 from facet_tpu_torch.ops.colorspace import rgb_to_gray
 from facet_tpu_torch.ops.phash import _bits_to_hex, hash_bits, hash_matrices, low_frequencies
 from facet_tpu_torch.ops.precision import full_float32
@@ -58,6 +62,10 @@ class FusedScorer:
         self.hs_subsample = hs_subsample
         # the stats configuration, read once here (FACET_ENTROPY_IMPL)
         self.entropy_impl = resolve_entropy_impl(entropy_impl)
+        # the ViT's attention schedule, read once here (FACET_ATTN_IMPL) and
+        # passed to each forward: the shared tower is not changed
+        self.attn_impl = resolve_attn_impl(seq_len=aesthetic.config.seq_len)
+        check_quant_impl()
         self._matrices = {}
 
     def _shape_matrices(self, h, w):
@@ -80,7 +88,8 @@ class FusedScorer:
             gray = rgb_to_gray(batch_u8).to(torch.float32)
             out["hash_bits"] = hash_bits(low_frequencies(gray, hash_rows, hash_cols, dct))
             crops = apply_separable_resize(batch_u8, rows, cols)
-            out["aesthetic"], out["embedding"] = self.aesthetic.forward_crops(crops)
+            out["aesthetic"], out["embedding"] = self.aesthetic.forward_crops(
+                crops, self.attn_impl)
         return out
 
     def score_images(self, images, riders=None):

@@ -13,6 +13,13 @@ tests/test_pallas_attn.py:47 pins for the TPU kernel against a bf16 oracle
 (measured here: the twin and the interpret-mode kernel differ by up to
 3.4e-4, where exp rounding flips a bf16 rounding of p), and 3e-4 for the
 error's RMS relative to the output's, which sees where p is rounded.
+The ViT's two attention kernels work in bf16: the row softmax (kernel 6)
+within one bf16 ulp of ``softmax_pallas`` element by element (measured: 25
+of 2.1 million elements differ, each by one ulp, where f32 exp or sum order
+rounds the other way); the fused attention (kernel 7) within one bf16 ulp
+of the output's largest magnitude and 3e-4 relative RMS of
+``clip._flash_attention`` (measured: 2.0e-3 and 6.1e-5; rounding p before
+normalizing it instead gives 3e-3, which the RMS limit rejects).
 
 Tests marked ``cuda`` run the CUDA kernels against the twins and skip
 without a card (python -m pytest tests/test_torch_kernels.py -m cuda on
@@ -24,7 +31,8 @@ import numpy as np
 import pytest
 import torch
 
-from facet_tpu_torch.ops import attention, entropy, fused_stats, gray_stats
+from facet_tpu_torch.ops import (
+    attention, entropy, flash_attention, fused_stats, gray_stats, softmax)
 from facet_tpu_torch.ops.stats import split_total
 
 
@@ -224,6 +232,105 @@ def test_supported_shape_gate_agrees():
                                   torch.zeros(1, 1, 257, 64))
 
 
+def _bf16(shape, seed, scale=1.0):
+    """Seeded normal values rounded to bf16, as float32 numpy: both
+    frameworks read the same bf16 numbers from it."""
+    x = np.random.default_rng(seed).normal(size=shape).astype(np.float32) * scale
+    return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp (8 significant bits) at |x|."""
+    return np.ldexp(1.0, np.frexp(np.abs(np.asarray(x, np.float32)))[1] - 8)
+
+
+def _within_one_ulp(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    diff = np.abs(got - want)
+    return diff, (diff <= _bf16_ulp(np.maximum(np.abs(got), np.abs(want)))).all()
+
+
+def _rel_rms(got, want):
+    diff = np.asarray(got, np.float64) - np.asarray(want, np.float64)
+    return float(np.sqrt(np.mean(diff ** 2) / np.mean(np.asarray(want, np.float64) ** 2)))
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 257, 257), (1, 3, 64, 128)])
+def test_softmax_twin_matches_pallas(shape):
+    """Scores at the ViT's scale, x4 as tests/test_pallas_softmax.py makes
+    them; (1, 3, 64, 128) has heads the TPU's head_block does not divide."""
+    from facet_tpu.ops.pallas_softmax import softmax_pallas
+
+    s = _bf16(shape, sum(shape), 4.0)
+    want = np.asarray(softmax_pallas(jnp.asarray(s, jnp.bfloat16), interpret=True),
+                      np.float32)
+    got = softmax.softmax(torch.from_numpy(s).to(torch.bfloat16))
+    assert got.dtype == torch.bfloat16 and got.shape == shape
+    diff, ok = _within_one_ulp(got.float().numpy(), want)
+    assert ok
+    assert (diff > 0).mean() <= 1e-3
+    np.testing.assert_allclose(got.float().sum(-1).numpy(), 1.0, atol=1e-2)
+
+
+def test_softmax_wrapper():
+    """head_block (the TPU's heads per grid step) is accepted and ignored;
+    float32 scores stay float32 on the CPU; the shape is checked."""
+    s = torch.from_numpy(_bf16((1, 4, 9, 11), 3, 4.0))
+    launches = softmax.softmax.launches
+    assert torch.equal(softmax.softmax(s, head_block=4), softmax.softmax(s))
+    assert softmax.softmax(s).dtype == torch.float32
+    assert softmax.softmax.launches == launches       # the twin, not the kernel
+    with pytest.raises(ValueError):
+        softmax.softmax(s[0])
+
+
+def _round_then_normalize(q, k, v, scale):
+    """The planted variant: p rounded to bf16 before it is normalized
+    (the TPU kernel's multi-block order), as float64 numpy."""
+    qt, kt, vt = (np.asarray(x, np.float64).transpose(0, 2, 1, 3) for x in (q, k, v))
+    s = (qt @ kt.transpose(0, 1, 3, 2)).astype(np.float32) * np.float32(scale)
+    e = np.exp(s - s.max(-1, keepdims=True))
+    p = torch.from_numpy(e).to(torch.bfloat16).double().numpy()
+    out = (p @ vt) / e.sum(-1, keepdims=True, dtype=np.float64)
+    return out.transpose(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("b,s,h,d", [(2, 257, 16, 64), (2, 37, 4, 32)])
+def test_flash_attention_twin_matches_jax(b, s, h, d):
+    """Against clip._flash_attention, which runs JAX's Pallas flash kernel
+    in interpret mode on the CPU; 37 tokens pad to 128 there. The RMS limit
+    tells the kernel's rounding order from the planted variant's."""
+    from facet_tpu.models.clip import _flash_attention
+
+    q, k, v = (_bf16((b, s, h, d), seed, scale)
+               for seed, scale in ((1, 1.5), (2, 1.0), (3, 1.0)))
+    want = np.asarray(_flash_attention(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+                                       d ** -0.5), np.float32)
+    got = flash_attention.flash_attention(
+        *(torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)), d ** -0.5)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, s, h, d)
+    got = got.float().numpy()
+    assert np.abs(got - want).max() <= _bf16_ulp(np.abs(want).max())
+    assert _rel_rms(got, want) <= 3e-4
+    assert _rel_rms(_round_then_normalize(q, k, v, d ** -0.5), want) > 3e-4
+
+
+def test_flash_attention_wrapper():
+    """Shapes, dtypes and devices of q, k, v are checked; a CPU tensor runs
+    the twin, not the kernel."""
+    q = torch.from_numpy(_bf16((1, 257, 2, 64), 4))
+    launches = flash_attention.flash_attention.launches
+    flash_attention.flash_attention(q, q, q, 0.125)
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention(q, q[:, :200], q, 0.125)
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention(q, q.double(), q, 0.125)
+    with pytest.raises(TypeError):
+        flash_attention.flash_attention(*(torch.zeros(1, 9, 2, 64, dtype=torch.int32),) * 3,
+                                        0.125)
+    assert flash_attention.flash_attention.launches == launches
+
+
 # ------------------------------------------------------------- on the card
 
 
@@ -288,3 +395,23 @@ def test_attention_kernel_matches_twin(cuda):
     diff = (got - want).double()
     assert float(diff.abs().max()) <= 1e-3
     assert float(diff.pow(2).mean().sqrt() / want.double().pow(2).mean().sqrt()) <= 3e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 16, 257, 257), (3, 3, 37, 53)])
+def test_softmax_kernel_matches_twin(cuda, shape):
+    s = torch.from_numpy(_bf16(shape, 12, 4.0)).to(cuda).to(torch.bfloat16)
+    got, want = softmax.softmax(s), softmax.softmax_plain(s)
+    _, ok = _within_one_ulp(got.float().cpu().numpy(), want.float().cpu().numpy())
+    assert ok
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s", [(2, 257), (2, 37)])
+def test_flash_attention_kernel_matches_twin(cuda, b, s):
+    q, k, v = (torch.from_numpy(_bf16((b, s, 16, 64), seed, scale)).to(cuda).to(torch.bfloat16)
+               for seed, scale in ((5, 1.5), (6, 1.0), (7, 1.0)))
+    got = flash_attention.flash_attention(q, k, v, 0.125).float().cpu().numpy()
+    want = flash_attention.flash_attention_plain(q, k, v, 0.125).float().cpu().numpy()
+    assert np.abs(got - want).max() <= _bf16_ulp(np.abs(want).max())
+    assert _rel_rms(got, want) <= 3e-4

@@ -3,7 +3,9 @@
 Parameters come from the JAX package (fallback_init) and are bridged onto
 the torch modules, so both sides compute with the same numbers; inputs are
 numpy arrays made from a seed. Tolerances: CLIP features 1e-4 and the
-aesthetic head 1e-5 at float32 on both sides (measured: CLIP 9.5e-7);
+aesthetic head 1e-5 at float32 on both sides (measured: CLIP 9.5e-7),
+in each of the three FACET_ATTN_IMPL schedules (xla, psoftmax, flash; the
+JAX package's own f32 schedules differ by at most 6e-7);
 TOPIQ's raw sigmoid 1e-4 against both JAX attention paths (measured 6.2e-6
 against xla, 1.8e-7 against the Pallas kernel); tag lists identical; aggregate scores
 1e-5 with identical categories.
@@ -73,6 +75,90 @@ def test_clip_tower_bf16_casting_points(clip_pair):
         got = tmod.eval()(torch.from_numpy(x)).numpy()
     scale = np.abs(want).max()
     assert np.abs(got - want).max() <= 0.02 * scale
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("impl", ["xla", "psoftmax", "flash"])
+def test_clip_tower_attention_schedules(clip_pair, impl, dtype):
+    """Both towers run one bridged tree under each attention schedule (the
+    JAX tower as a module attribute, the port's as a forward argument):
+    float32 within 1e-4 (measured at most 7.2e-7); bf16 within 2% of the
+    features' largest magnitude, the bound of
+    test_clip_tower_bf16_casting_points (measured 0.51-0.74%)."""
+    from facet_tpu.models import clip as jclip
+    from facet_tpu_torch.models import clip
+
+    _, tree, _ = clip_pair
+    jmod = jclip.CLIPVisionTower(jclip.CLIPVisionConfig(**TINY_CLIP),
+                                 dtype=getattr(jnp, dtype), attn_impl=impl)
+    tmod = P.bridge(clip.CLIPVisionTower(clip.CLIPVisionConfig(**TINY_CLIP),
+                                         dtype=getattr(torch, dtype)), tree).eval()
+    x = np.random.default_rng(12).normal(size=(2, 56, 56, 3)).astype(np.float32)
+    want = np.asarray(jmod.apply(tree, jnp.asarray(x)))
+    with torch.no_grad():
+        got = tmod(torch.from_numpy(x), impl).numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+    else:
+        assert np.abs(got - want).max() <= 0.02 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("env,want", [(None, "xla"), ("xla", "xla"),
+                                      ("psoftmax", "psoftmax"), ("flash", "flash")])
+def test_attn_impl_resolver(monkeypatch, env, want):
+    """FACET_ATTN_IMPL when set, else the argument; "auto" is xla. The
+    fused scorer reads it once and keeps it."""
+    from facet_tpu_torch.models import aesthetic, clip
+    from facet_tpu_torch.processing.device_pipeline import FusedScorer
+
+    monkeypatch.delenv("FACET_ATTN_IMPL", raising=False)
+    assert clip.resolve_attn_impl(want) == want
+    if env is not None:
+        monkeypatch.setenv("FACET_ATTN_IMPL", env)
+    assert clip.resolve_attn_impl() == want
+    vision = clip.CLIPVisionTower(clip.CLIPVisionConfig(**TINY_CLIP))
+    scorer = aesthetic.AestheticScorer(vision, aesthetic.AestheticHead(), "cpu")
+    assert FusedScorer(scorer).attn_impl == want
+
+
+def test_attn_impl_refusals(monkeypatch):
+    """An unknown schedule, the int8 tier (FACET_CLIP_INT8) and a
+    FACET_FLASH_BLOCK that asks flash for several key blocks raise where the
+    fused scorer is built, and only there: kernel 7 itself does not read
+    FACET_FLASH_BLOCK. The JAX package's falsy FACET_CLIP_INT8 values and a
+    one-block FACET_FLASH_BLOCK do not raise."""
+    from facet_tpu_torch.models import aesthetic, clip
+    from facet_tpu_torch.ops.flash_attention import flash_attention
+    from facet_tpu_torch.processing.device_pipeline import FusedScorer
+
+    vision = clip.CLIPVisionTower(clip.CLIPVisionConfig(**TINY_CLIP))
+    scorer = aesthetic.AestheticScorer(vision, aesthetic.AestheticHead(), "cpu")
+    monkeypatch.setenv("FACET_ATTN_IMPL", "pallas")
+    with pytest.raises(ValueError, match="FACET_ATTN_IMPL"):
+        FusedScorer(scorer)
+    with pytest.raises(KeyError):                      # no quiet fall back to xla
+        vision(torch.zeros(1, 56, 56, 3), "pallas")
+    monkeypatch.setenv("FACET_ATTN_IMPL", "flash")
+    for falsy in ("", "0", "false"):
+        monkeypatch.setenv("FACET_CLIP_INT8", falsy)
+        FusedScorer(scorer)
+    monkeypatch.setenv("FACET_CLIP_INT8", "1")
+    with pytest.raises(NotImplementedError, match="FACET_CLIP_INT8"):
+        FusedScorer(scorer)
+    monkeypatch.delenv("FACET_CLIP_INT8")
+    monkeypatch.setenv("FACET_FLASH_BLOCK", "128")     # 257 tokens pad to 384
+    assert clip.resolve_attn_impl("auto", seq_len=17) == "flash"
+    with pytest.raises(ValueError, match="FACET_FLASH_BLOCK"):
+        clip.resolve_attn_impl()
+    monkeypatch.setenv("FACET_FLASH_BLOCK", "384")
+    assert clip.resolve_attn_impl() == "flash"
+    monkeypatch.setenv("FACET_FLASH_BLOCK", "64")
+    with pytest.raises(ValueError, match="FACET_FLASH_BLOCK"):
+        FusedScorer(scorer)
+    q = torch.zeros(1, 257, 2, 64, dtype=torch.bfloat16)
+    assert flash_attention(q, q, q, 0.125).shape == q.shape
+    monkeypatch.setenv("FACET_ATTN_IMPL", "xla")
+    assert FusedScorer(scorer).attn_impl == "xla"
 
 
 def test_aesthetic_head_and_recompute():

@@ -1,5 +1,8 @@
 """The slice end to end: ``--pass quality`` through the port against the
-JAX engine, on the same small JPEGs, into two databases.
+JAX engine, on the same small JPEGs, into two databases; and ``--pass
+embeddings`` of both under the ViT's other attention schedules
+(FACET_ATTN_IMPL=psoftmax and =flash: kernels 6 and 7, their twins here,
+against the Pallas kernels in interpret mode).
 
 JAX side: ChunkedMultiPassProcessor(Facet(...)).run_single_pass(files,
 "quality") with FACET_ENTROPY_IMPL=pallas and FACET_TOPIQ_ATTN=pallas (the
@@ -139,16 +142,50 @@ def fused_rows(runs, photos):
         mp.undo()
 
 
-def _assert_rows_match(got, want):
+@pytest.fixture(scope="module", params=["psoftmax", "flash"])
+def embeddings_runs(request, photos):
+    """``--pass embeddings`` of both packages with FACET_ATTN_IMPL set to
+    the schedule under test, each into a fresh database."""
+    impl = request.param
+    root, files, cfg_path = photos
+    mp = pytest.MonkeyPatch()
+    mp.setenv("FACET_ATTN_IMPL", impl)
+    mp.setenv("FACET_ENTROPY_IMPL", "pallas")
+    mp.setenv("FACET_DISABLE_DP", "1")
+    mp.chdir(root)
+    try:
+        from facet_tpu.config.scoring_config import ScoringConfig as JConfig
+        from facet_tpu.processing.multi_pass import ChunkedMultiPassProcessor as JProcessor
+        from facet_tpu.processing.scorer import Facet as JFacet
+        from facet_tpu_torch.config.scoring_config import ScoringConfig
+        from facet_tpu_torch.processing.multi_pass import ChunkedMultiPassProcessor
+        from facet_tpu_torch.processing.scorer import Facet
+
+        jdb, tdb = str(root / f"jax_{impl}.db"), str(root / f"torch_{impl}.db")
+        JProcessor(JFacet(jdb, JConfig(cfg_path))).run_single_pass(
+            files, "embeddings", verbose=False)
+        facet = Facet(tdb, ScoringConfig(cfg_path), device="cpu")
+        ChunkedMultiPassProcessor(facet).run_single_pass(files, "embeddings", verbose=False)
+        assert facet._fused.attn_impl == impl
+        return impl, _rows(jdb), _rows(tdb)
+    finally:
+        mp.undo()
+
+
+def _assert_rows_match(got, want, scoring_model="topiq"):
+    """``scoring_model`` "clip-mlp": the rows' aesthetic is the CLIP
+    aesthetic, held at the bf16 bound."""
     assert [r["path"] for r in got] == [r["path"] for r in want]
     assert set(got[0]) == set(want[0])
     for g, w in zip(got, want):
-        assert g["scoring_model"] == "topiq"
+        assert g["scoring_model"] == scoring_model
         for col in w:
             if col in FROM_INTEGER_STATS and w[col] is not None:
                 assert g[col] == pytest.approx(w[col], abs=1e-6), col
             elif col in FROM_ENTROPY:
                 assert g[col] == pytest.approx(w[col], abs=1e-5, rel=1e-5), col
+            elif col == "aesthetic" and scoring_model == "clip-mlp":
+                assert g[col] == pytest.approx(w[col], abs=AESTHETIC_BF16_TOL), col
             elif col in SCORES:
                 assert g[col] == pytest.approx(w[col], abs=1e-3), col
             elif col == "clip_embedding":
@@ -212,3 +249,12 @@ def test_cli_quality_pass_and_refusals(photos, tmp_path, capsys):
     assert main([photo_dir, "--pass", "faces"] + args) == 2
     assert main([photo_dir, "--recompute-average"] + args) == 2
     assert "not yet ported" in capsys.readouterr().err
+
+
+def test_embeddings_pass_attention_schedules(embeddings_runs):
+    """Under FACET_ATTN_IMPL=psoftmax and =flash the port's --pass
+    embeddings rows match facet_tpu's under the same variable: the CLIP
+    aesthetic and embedding at the bf16 bounds above (measured at most
+    2.5e-3 and 4.6e-4), every other column as in the quality pass."""
+    _, want, got = embeddings_runs
+    _assert_rows_match(got, want, scoring_model="clip-mlp")
