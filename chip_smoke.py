@@ -1,6 +1,7 @@
 """Smoke test of the PyTorch/CUDA port (facet_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ab OTHER_TREE
 
 Phases, in order; any failure exits non-zero and nothing is caught:
 
@@ -16,12 +17,18 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    integer sums must be identical, entropy within 1e-5, kernel 2 within
    ATTN_TOL and ATTN_REL_RMS_TOL, kernel 6 within one bf16 ulp element by
    element, kernel 7 within one bf16 ulp of its output's magnitude and
-   VIT_ATTN_REL_RMS_TOL. Each reports the median times of kernel and twin
-   from CUDA events, its bound (the least time the card could take for the
-   same work) and, where one PyTorch call computes the same function, that
-   call's time on the same inputs (F.scaled_dot_product_attention for
-   kernels 2 and 7, torch.softmax for kernel 6: yardsticks only, the port
-   never calls them); then the whole statistics prepass is timed in both
+   VIT_ATTN_REL_RMS_TOL; for kernels 2 and 7 a planted variant that rounds
+   p before normalizing it must fail the relative-RMS limit. Each reports
+   the median times of kernel and twin from CUDA events, its bound (the
+   least time the card could take for the same work) and, where one
+   PyTorch call computes the same function, that call's time on the same
+   inputs (F.scaled_dot_product_attention for kernels 2 and 7,
+   torch.softmax for kernel 6: yardsticks only, the port never calls
+   them). Kernels 2 and 7 also report, at the main path's shape, their and
+   SDPA's device time per call replayed from a CUDA graph (no host launch
+   cost), resident blocks per SM and the bytes staged into shared memory
+   (for kernel 2 also through L2), reckoned from the grid; then the whole
+   statistics prepass is timed in both
    configurations, and the ViT-L/14 forward under each attention schedule;
 4. the slice: ``python -m facet_tpu_torch <dir> --pass quality`` in-process
    over synthetic photos at full width (ViT-L/14 at 224 in bf16 with the
@@ -42,6 +49,12 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 
 The second-to-last line is the kernel report, a JSON object; the last line
 is {"ok": true, "device": {...}}.
+
+With ``--ab OTHER_TREE`` it runs only the checks of kernels 2 and 7, of
+another checkout of the repo and of this one in turns on one card (other,
+this, this, other), each tree with its own chip_smoke.py in a process of
+its own, so each builds and times its own kernels. For a parent commit:
+``mkdir -p build/parent && git archive <commit> | tar -x -C build/parent``.
 """
 
 import importlib.util
@@ -72,7 +85,9 @@ from facet_tpu_torch.ops.stats import ENTROPY_IMPLS, batch_stats
 # catches gross faults. The error's RMS relative to the output's RMS sees
 # every element: about 2.5e-5 for a kernel with the twin's rounding points
 # and about 1.7e-3 for one that leaves p unrounded (a float64 emulation on
-# the CPU at (4, 4, 9216, 2304, 64)); ATTN_REL_RMS_TOL sits between.
+# the CPU at (4, 4, 9216, 2304, 64)); ATTN_REL_RMS_TOL sits between. A
+# kernel that rounds exp(s - m) before dividing by l (an online softmax's
+# order) is planted at batch 4 in plain PyTorch, and the limit must reject it.
 ATTN_TOL = 1e-3
 ATTN_REL_RMS_TOL = 3e-4
 # Kernel 7 against its twin, two limits, chosen as kernel 2's were: both
@@ -97,6 +112,9 @@ SCAN_COUNTS = (24, 8)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 FP32_OPS = 67e12
+# exponentials a second on the multi-function units: 16 a clock per SM on
+# 132 SMs at the 1.98 GHz boost clock
+MUFU_EXP_PER_S = 16 * 132 * 1.98e9
 # 32-bit ALU operations per pixel of each statistics kernel's arithmetic
 # (their histograms and sums, not the address math): kernel 1 bins and
 # checks a (hue, sat) pair; kernel 5 evaluates two 3x3 stencils, a square,
@@ -139,6 +157,22 @@ def cuda_median_ms(fn, reps=10, warmup=2):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def graph_ms(fn, launches=20):
+    """Device time per call without the host's launch cost: ``launches``
+    calls captured in one CUDA graph, the replay timed as cuda_median_ms
+    times it, divided by ``launches``."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    ms = cuda_median_ms(graph.replay) / launches
+    del graph
+    torch.cuda.empty_cache()
+    return ms
 
 
 def synthetic_photos(n, h, w, seed, degenerate=False):
@@ -185,7 +219,7 @@ def phase_build():
     phase("build", f"{info['path']} built in {info['seconds']:.1f} s "
                    f"({time.time() - t0:.1f} s with load)")
     for ln in info["log"].splitlines():
-        if "entry function" in ln or "registers" in ln or "spill" in ln:
+        if any(word in ln for word in ("entry function", "registers", "spill", "wgmma")):
             phase("build", ln.strip())
 
 
@@ -339,11 +373,23 @@ def attention_errors(got, want):
             float(diff.pow(2).mean().sqrt() / want.double().pow(2).mean().sqrt()))
 
 
+def cross_round_then_normalize(q, k, v):
+    """The planted variant of kernel 2's rounding points: exp(s - m)
+    rounded to bf16 before it is divided by l (what a one-pass online
+    softmax does), in plain PyTorch."""
+    qb, kb, vb = (x.to(torch.bfloat16).float() for x in (q, k, v))
+    with full_float32():
+        s = torch.matmul(qb, kb.transpose(-1, -2))
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        return torch.matmul(e.to(torch.bfloat16).float(), vb) / e.sum(dim=-1, keepdim=True)
+
+
 def check_attention(gpu):
     """Kernel 2 vs its twin: TOPIQ's C2 level at 384 px for the scan's own
     batches (the reported time is the first), then batch 4 at 384 px and at
-    the fast tier's 256 px. Its bound: 4*B*H*Nq*Nk*D bf16 tensor-core FLOP
-    (QK^T and PV) against q, k, v and out in f32 read or written once; its
+    the fast tier's 256 px, where the planted variant must fail the
+    relative-RMS limit. Its bound: 4*B*H*Nq*Nk*D bf16 tensor-core FLOP (QK^T
+    and PV) against q, k, v and out in f32 read or written once; its
     library yardstick: F.scaled_dot_product_attention on q, k, v in bf16."""
     report = {"max_abs_err": 0.0}
     cases = [(n, 4, 9216, 2304) for n in SCAN_COUNTS]
@@ -363,6 +409,13 @@ def check_attention(gpu):
             raise AssertionError(
                 f"attention max|d| {err} (tol {ATTN_TOL}), relative RMS "
                 f"{rel_rms} (tol {ATTN_REL_RMS_TOL}) at {(b, h, nq, nk)}")
+        planted = ""
+        if b == 4:
+            _, planted_rms = attention_errors(cross_round_then_normalize(q, k, v), want)
+            if planted_rms <= ATTN_REL_RMS_TOL:
+                raise AssertionError(f"the relative RMS limit does not reject the "
+                                     f"planted variant ({planted_rms}) at {(b, h, nq, nk)}")
+            planted = f"; planted variant {planted_rms:.3g}"
         report["max_abs_err"] = max(report["max_abs_err"], err)
         ms = cuda_median_ms(lambda: attention.cross_attention(q, k, v))
         plain_ms = cuda_median_ms(lambda: attention.cross_attention_plain(q, k, v))
@@ -372,12 +425,30 @@ def check_attention(gpu):
         del qb, kb, vb
         bound_ms, bound_by = bound(b * h * (2 * nq + 2 * nk) * 64 * 4,
                                    4 * b * h * nq * nk * 64, BF16_FLOPS)
+        # the kernel's own floor: three products, two exponentials a score
+        floor_ms = max(6 * b * h * nq * nk * 64 / BF16_FLOPS,
+                       2 * b * h * nq * nk / MUFU_EXP_PER_S) * 1e3
+        grid = attention.geometry(b, h, nq, nk)
+        graphs = ""
+        if "ms" not in report:
+            report["blocks_per_sm"] = grid["blocks_per_sm"]
+            report["graph_ms"] = graph_ms(lambda: attention.cross_attention(q, k, v))
+            qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+            report["library_graph_ms"] = graph_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(qb, kb, vb))
+            del qb, kb, vb
+            graphs = (f" (in a CUDA graph: kernel {report['graph_ms']:.3f} ms, SDPA "
+                      f"{report['library_graph_ms']:.3f} ms)")
         phase("kernels", f"cross_attention ({b},{h},{nq},{nk},64): "
                          f"max|d|={err:.3g} (tol {ATTN_TOL}), relative RMS "
-                         f"{rel_rms:.3g} (tol {ATTN_REL_RMS_TOL}), kernel "
+                         f"{rel_rms:.3g} (tol {ATTN_REL_RMS_TOL}{planted}), kernel "
                          f"{ms:.3f} ms, twin {plain_ms:.3f} ms, SDPA bf16 "
-                         f"{library_ms:.3f} ms, bound {bound_ms:.4f} ms "
-                         f"({bound_by}) ({gpu})")
+                         f"{library_ms:.3f} ms{graphs}, bound {bound_ms:.4f} ms "
+                         f"({bound_by}), two-pass floor {floor_ms:.3f} ms; "
+                         f"{grid['blocks']} blocks, {grid['blocks_per_sm']} per SM; "
+                         f"reckoned from the grid: {grid['staged_bytes'] / 1e9:.3f} GB "
+                         f"staged into shared memory, {grid['l2_bytes'] / 1e9:.3f} GB "
+                         f"of K/V through L2 ({gpu})")
         if "ms" not in report:
             report.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=library_ms)
@@ -445,13 +516,14 @@ def round_then_normalize(q, k, v, scale):
 
 def check_vit_attention(gpu):
     """Kernel 7 vs its twin: the ViT's (B, 257, 16, 64) at the scan's
-    batches (the reported time is the first) and (2, 37, 16, 64) for a
-    ragged last query tile. Its bound: q, k, v and out in bf16 read or
+    batches (the reported time is the first), then 37 tokens (one partial
+    tile), 65 (one row past a tile) and 400 (the longest the kernel takes). Its bound: q, k, v and out in bf16 read or
     written once against 4*B*H*S*S*D bf16 tensor-core FLOP; its library
     yardstick: F.scaled_dot_product_attention on the same bf16 tensors in
     (B, H, S, D) with the same scale."""
     report = {"max_abs_err": 0.0}
-    cases = [(n, 257, 16, 64) for n in SCAN_COUNTS] + [(2, 37, 16, 64)]
+    cases = [(n, 257, 16, 64) for n in SCAN_COUNTS]
+    cases += [(2, 37, 16, 64), (2, 65, 16, 64), (2, 400, 16, 64)]
     scale = 64 ** -0.5
     for b, s, h, d in cases:
         g = torch.Generator(device="cuda").manual_seed(b * s)
@@ -482,12 +554,25 @@ def check_vit_attention(gpu):
             lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
                                                                      scale=scale))
         bound_ms, bound_by = bound(4 * b * s * h * d * 2, 4 * b * h * s * s * d, BF16_FLOPS)
+        grid = flash_attention.geometry(b, s, h)
+        graphs = ""
+        if "ms" not in report:
+            report["blocks_per_sm"] = grid["blocks_per_sm"]
+            report["graph_ms"] = graph_ms(
+                lambda: flash_attention.flash_attention(q, k, v, scale))
+            report["library_graph_ms"] = graph_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
+                                                                         scale=scale))
+            graphs = (f" (in a CUDA graph: kernel {report['graph_ms']:.4f} ms, SDPA "
+                      f"{report['library_graph_ms']:.4f} ms)")
         phase("kernels", f"flash_attention ({b},{s},{h},{d}): max|d|={err:.3g} "
                          f"(limit {limit:.3g}), relative RMS {rel_rms:.3g} (limit "
                          f"{VIT_ATTN_REL_RMS_TOL}; planted variant {planted_rms:.3g}), "
                          f"kernel {ms:.4f} ms, twin {plain_ms:.3f} ms, SDPA bf16 "
-                         f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
-                         f"({gpu})")
+                         f"{library_ms:.4f} ms{graphs}, bound {bound_ms:.4f} ms ({bound_by}); "
+                         f"{grid['blocks']} blocks, {grid['blocks_per_sm']} per SM; "
+                         f"reckoned from the grid: {grid['staged_bytes'] / 1e6:.1f} MB "
+                         f"staged into shared memory ({gpu})")
         if "ms" not in report:
             report.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=library_ms)
@@ -773,6 +858,17 @@ KERNELS = {
 }
 
 
+def ab_attention(other):
+    """Kernels 2 and 7 of the checkout ``other`` and of this one, in turns."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import chip_smoke as c; g = c.phase_device(); c.phase_build(); "
+            "c.check_attention(g); c.check_vit_attention(g)")
+    for tree in (other, here, here, other):
+        phase("ab", os.path.abspath(tree))
+        subprocess.run([sys.executable, "-c", code], cwd=tree, check=True)
+    return 0
+
+
 def main():
     gpu = phase_device()
     phase_build()
@@ -793,4 +889,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ab"]:
+        sys.exit(ab_attention(sys.argv[2]))
     sys.exit(main())

@@ -1,204 +1,304 @@
 // Cross-attention softmax(Q K^T) V for TOPIQ's finest level, head dim 64.
 //
 // Replaces: facet_tpu/ops/pallas_attn.py:cross_attention_pallas (kernel
-// _attn_kernel). Numerics follow that kernel exactly: q, k, v rounded to
-// bf16; scores accumulated in f32; softmax in f32; p normalized THEN
-// rounded to bf16; P V accumulated in f32. q arrives pre-scaled by
-// 1/sqrt(64). There is no mask.
+// _attn_kernel). Numerics follow that kernel: q, k, v rounded to bf16;
+// scores accumulated in f32; the exact row max m and row sum l in f32; p
+// normalized by the final l THEN rounded to bf16; P V accumulated in f32. q
+// arrives pre-scaled by 1/sqrt(64). There is no mask. exp is taken as exp2
+// of the score times log2(e), and p as exp(s - m) times one reciprocal of l
+// per row: both move f32 rounding by about an ulp, which now and then flips
+// one bf16 rounding of p (the relative-RMS limit of the tests measures it).
 //
-// What bounds it on an H100: at 9216 queries x 2304 keys per (batch, head)
-// the work is ~2.7 GFLOP per (b, h) of bf16 tensor-core products, and the
-// score matrix (85 MB per (b, h) in f32) must never reach device memory.
-// The TPU kernel kept all of K and V resident in VMEM; in bf16 they take
-// 576 KB for one (b, h) at 2304 keys, more than the 227 KB of shared memory
-// a block can hold, so this kernel streams K/V tiles instead.
+// What bounds it on an H100: tensor-core operations and exponentials. The
+// function is 4 * Nq * Nk * 64 FLOP per (batch, head): 522 GFLOP at
+// (24, 4, 9216, 2304), 0.53 ms at the bf16 peak. Normalizing p before
+// rounding it needs l before any p exists, so an online (one-pass) softmax,
+// which rounds exp(s - m_running) first, would change the result. This
+// kernel therefore runs two passes: pass 1 computes Q K^T for m and l, pass
+// 2 computes it again for p and P V. Its own floor is three products (783
+// GFLOP, 0.79 ms) and two exponentials per score (4.1 G on the 16-a-clock
+// multi-function units of 132 SMs, about 1.1 ms).
 //
-// Design (first right version, two passes): one block of 4 warps per
-// (b*h, 64-query tile); each warp owns 16 query rows. The block converts
-// its Q tile to bf16 in shared memory once. Pass 1 streams 64-key K tiles,
-// computes the 64x64 score tile with bf16 wmma (m16n16k16, f32 accumulate)
-// into shared memory and keeps each row's running max and running sum of
-// exp. Pass 2 streams K and V again, recomputes the scores, forms
-// bf16(exp(s - m) / l) exactly as the TPU kernel does, and accumulates P V
-// with wmma in registers. The only difference from the TPU kernel's
-// rounding is the order of the f32 sums (the row sum is built tile by tile
-// with rescaling), which stays at float32 rounding level. wgmma, TMA, a
-// single online pass and warp specialisation are later work.
+// Design:
+//   - a prologue kernel converts K and V to bf16 once per launch into a
+//     scratch tensor the wrapper allocates, (2, BH * Nk, 64);
+//   - the main kernel runs one block per (b*h, 192-query tile): three
+//     consumer warpgroups of 64 query rows and one producer warp. The
+//     consumers convert their f32 Q rows to bf16 into 128B-swizzled shared
+//     memory once. The producer's elected lane streams 128-key K tiles
+//     (pass 1), then K and V tiles (pass 2), by TMA into a ring of four
+//     stages guarded by full/empty mbarriers, so the next tiles are in
+//     flight while the consumers compute;
+//   - pass 1: S = Q K^T by wgmma (A and B from shared memory) into
+//     registers; each row's running max and rescaled sum, reduced over the
+//     quad of lanes that holds the row;
+//   - pass 2: S again, p = bf16(exp(s - m) / l) formed in registers as
+//     wgmma A fragments, O += P V by wgmma with V (MN-major) from shared
+//     memory, issued per 64-key half so the first half's products overlap
+//     the second half's exponentials; O (f32) written straight from the
+//     accumulators.
+// Each block reads its head's bf16 K twice and V once through L2: 3 * Nk *
+// 128 B per block, 4.1 GB per launch at (24, 4, 9216, 2304)
+// (facet_cross_attention_geometry reckons it for any shape).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-
-using namespace nvcuda;
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kD = 64;          // head dim
-constexpr int kQT = 64;         // query rows per block
-constexpr int kKT = 64;         // keys per tile
-constexpr int kThreads = 128;   // 4 warps x 16 rows
-constexpr int kLdb = kD + 8;    // bf16 smem row stride (144 B, keeps 32 B alignment)
-constexpr int kLds = kKT + 4;   // f32 score row stride (272 B)
-constexpr int kTileBf16 = kQT * kLdb;
-constexpr size_t kSmemBytes =
-    4 * kTileBf16 * sizeof(__nv_bfloat16) + kQT * kLds * sizeof(float);
+using namespace hopper;
 
-// rows x 64 f32 (contiguous) -> bf16 rows with stride kLdb
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const float* __restrict__ src,
-                                               int rows) {
-  const float4* src4 = reinterpret_cast<const float4*>(src);
-  for (int i = threadIdx.x; i < rows * (kD / 4); i += kThreads) {
-    const int r = i / (kD / 4);
-    const int c = (i % (kD / 4)) * 4;
-    const float4 f = __ldg(src4 + i);
-    __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(dst + r * kLdb + c);
-    d[0] = __floats2bfloat162_rn(f.x, f.y);
-    d[1] = __floats2bfloat162_rn(f.z, f.w);
+constexpr int kD = 64;                       // head dim
+constexpr int kWarpgroups = 3;               // consumer warpgroups
+constexpr int kRowsPerWg = 64;
+constexpr int kQT = kWarpgroups * kRowsPerWg;  // 192 query rows per block
+constexpr int kKT = 128;                     // keys per stage
+constexpr int kStages = 4;
+constexpr int kConsumerWarps = kWarpgroups * 4;
+constexpr int kThreads = kWarpgroups * 128 + 32;
+constexpr int kTileBytes = kKT * kD * 2;     // one bf16 K or V tile, 16 KB
+constexpr int kStageBytes = 2 * kTileBytes;  // K then V
+constexpr int kQBytes = kQT * kD * 2;
+constexpr size_t kSmemBytes =
+    1024 + kQBytes + (size_t)kStages * kStageBytes + 2 * kStages * sizeof(uint64_t);
+
+__global__ void to_bf16_kernel(const float4* __restrict__ k, const float4* __restrict__ v,
+                               uint4* __restrict__ out, long long n8) {
+  const float4* src = blockIdx.y == 0 ? k : v;
+  uint4* dst = out + blockIdx.y * n8;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n8;
+       i += (long long)gridDim.x * blockDim.x) {
+    const float4 a = __ldg(src + 2 * i);
+    const float4 b = __ldg(src + 2 * i + 1);
+    dst[i] = make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w), pack_bf16(b.x, b.y),
+                        pack_bf16(b.z, b.w));
   }
 }
 
-// The warp's 16x64 score rows: S = Q[r0:r0+16] K_tile^T -> ss (f32).
-__device__ __forceinline__ void score_tile(const __nv_bfloat16* qs,
-                                           const __nv_bfloat16* ks, float* ss,
-                                           int r0) {
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kKT / 16];
+// The f32 scores of one 128-key tile for this thread, keys 64 n .. 64 n + 63
+// in s[n] (accumulator layout of hopper.cuh).
+__device__ __forceinline__ void scores(float (&s)[2][32], uint64_t desc_q, uint32_t k_tile) {
+  wgmma_fence();
 #pragma unroll
-  for (int n = 0; n < kKT / 16; ++n) wmma::fill_fragment(acc[n], 0.0f);
+  for (int kk = 0; kk < kD / 16; ++kk) {   // 16 dims = 32 B along the swizzled rows
 #pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-    wmma::load_matrix_sync(a, qs + r0 * kLdb + kk * 16, kLdb);
-#pragma unroll
-    for (int n = 0; n < kKT / 16; ++n) {
-      // K^T as a column-major (dim x key) operand: column n is key n's row
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-      wmma::load_matrix_sync(b, ks + n * 16 * kLdb + kk * 16, kLdb);
-      wmma::mma_sync(acc[n], a, b, acc[n]);
+    for (int n = 0; n < 2; ++n) {
+      wgmma_m64n64k16_ss(s[n], desc_q + 2 * kk, desc_sw128(k_tile + n * 64 * 128) + 2 * kk,
+                         kk > 0);
     }
   }
-#pragma unroll
-  for (int n = 0; n < kKT / 16; ++n) {
-    wmma::store_matrix_sync(ss + r0 * kLds + n * 16, acc[n], kLds,
-                            wmma::mem_row_major);
-  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(s[0]);
+  fence_regs(s[1]);
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
+__global__ void __launch_bounds__(kThreads, 1)
+cross_attention_kernel(const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map,
+                       const float* __restrict__ q, float* __restrict__ o, int nq,
+                       int nk) {
+  extern __shared__ unsigned char smem_raw[];
+  // 1024-byte alignment for the swizzled tiles
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t q_smem = base;
+  const uint32_t stage0 = base + kQBytes;
+  const uint32_t full0 = stage0 + kStages * kStageBytes;
+  const uint32_t empty0 = full0 + kStages * 8;
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__global__ void __launch_bounds__(kThreads)
-cross_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ o,
-                       int nq, int nk) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ks = qs + kTileBf16;
-  __nv_bfloat16* vs = ks + kTileBf16;
-  __nv_bfloat16* ps = vs + kTileBf16;
-  float* ss = reinterpret_cast<float*>(ps + kTileBf16);
-
-  const long long bh = blockIdx.y;
+  const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kQT;
-  const float* qg = q + (bh * nq + q0) * kD;
-  const float* kg = k + bh * nk * kD;
-  const float* vg = v + bh * nk * kD;
-  float* og = o + (bh * nq + q0) * kD;
+  const int n_tiles = nk / kKT;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int r0 = warp * 16;
 
-  load_tile_bf16(qs, qg, kQT);
-
-  // running row max / row sum of exp for the warp's 16 rows (all lanes hold them)
-  float m[16], l[16];
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.0f;
-  }
-
-  // ---- pass 1: row max and row sum of exp
-  for (int t = 0; t < nk; t += kKT) {
-    __syncthreads();
-    load_tile_bf16(ks, kg + (long long)t * kD, kKT);
-    __syncthreads();
-    score_tile(qs, ks, ss, r0);
-    __syncwarp();
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const float* row = ss + (r0 + r) * kLds;
-      const float a = row[lane];
-      const float b = row[lane + 32];
-      const float mn = fmaxf(m[r], warp_max(fmaxf(a, b)));
-      const float e = warp_sum(expf(a - mn) + expf(b - mn));
-      l[r] = l[r] * expf(m[r] - mn) + e;
-      m[r] = mn;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumerWarps);
     }
+    mbar_init_fence();
   }
+  __syncthreads();
 
-  // ---- pass 2: P = bf16(exp(s - m) / l), O += P V
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kD / 16];
-#pragma unroll
-  for (int n = 0; n < kD / 16; ++n) wmma::fill_fragment(acc[n], 0.0f);
-  for (int t = 0; t < nk; t += kKT) {
-    __syncthreads();
-    load_tile_bf16(ks, kg + (long long)t * kD, kKT);
-    load_tile_bf16(vs, vg + (long long)t * kD, kKT);
-    __syncthreads();
-    score_tile(qs, ks, ss, r0);
-    __syncwarp();
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const float* row = ss + (r0 + r) * kLds;
-      __nv_bfloat16* prow = ps + (r0 + r) * kLdb;
-      prow[lane] = __float2bfloat16(expf(row[lane] - m[r]) / l[r]);
-      prow[lane + 32] = __float2bfloat16(expf(row[lane + 32] - m[r]) / l[r]);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int kk = 0; kk < kKT / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, ps + r0 * kLdb + kk * 16, kLdb);
-#pragma unroll
-      for (int n = 0; n < kD / 16; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, vs + kk * 16 * kLdb + n * 16, kLdb);
-        wmma::mma_sync(acc[n], a, b, acc[n]);
+  if (warp == kConsumerWarps) {
+    // ---- producer: K tiles for pass 1, then K and V tiles for pass 2
+    if (lane == 0) {
+      const int row0 = bh * nk;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int it = 0; it < 2 * n_tiles; ++it) {
+        const bool pass2 = it >= n_tiles;
+        const int t = pass2 ? it - n_tiles : it;
+        const uint32_t full = full0 + 8 * stage;
+        mbar_wait(empty0 + 8 * stage, phase ^ 1);
+        mbar_expect_tx(full, pass2 ? kStageBytes : kTileBytes);
+        const uint32_t dst = stage0 + stage * kStageBytes;
+        tma_load_2d(dst, &k_map, full, 0, row0 + t * kKT);
+        if (pass2) tma_load_2d(dst + kTileBytes, &v_map, full, 0, row0 + t * kKT);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
     }
+    return;
   }
+
+  // ---- consumers
+  const int wg = warp >> 2;
+  const int tid = threadIdx.x & 127;
+  const int g = (warp & 3) * 16 + (lane >> 2);   // this thread's rows g, g + 8
+  const int c2 = 2 * (lane & 3);                 // and columns c2, c2 + 1 of a chunk
+  const int wg_row0 = q0 + wg * kRowsPerWg;
+  const bool wg_valid = wg_row0 < nq;            // nq is a multiple of 64
+
+  // Q rows -> bf16, swizzled; rows past nq (a ragged last tile) are zero
+  {
+    const float4* qg =
+        reinterpret_cast<const float4*>(q + ((long long)bh * nq + wg_row0) * kD);
+    unsigned char* qs = smem + wg * kRowsPerWg * 128;
 #pragma unroll
-  for (int n = 0; n < kD / 16; ++n) {
-    wmma::store_matrix_sync(og + r0 * kD + n * 16, acc[n], kD, wmma::mem_row_major);
+    for (int i = 0; i < kRowsPerWg * 8 / 128; ++i) {
+      const int chunk = tid + 128 * i;       // 16-byte chunk of the bf16 tile
+      const int r = chunk >> 3, c = chunk & 7;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (wg_valid) {
+        const float4 a = __ldg(qg + 2 * chunk);
+        const float4 b = __ldg(qg + 2 * chunk + 1);
+        val = make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w), pack_bf16(b.x, b.y),
+                         pack_bf16(b.z, b.w));
+      }
+      *reinterpret_cast<uint4*>(qs + r * 128 + ((c ^ (r & 7)) << 4)) = val;
+    }
+  }
+  fence_proxy_async();
+  named_barrier(1 + wg, 128);
+  const uint64_t desc_q = desc_sw128(q_smem + wg * kRowsPerWg * 128);
+
+  float s[2][32];
+  float m[2] = {-INFINITY, -INFINITY};   // in log2 units: max(s) * log2(e)
+  float l[2] = {0.0f, 0.0f};             // this thread's share of the row sum
+  int stage = 0;
+  uint32_t phase = 0;
+
+  // ---- pass 1: row max and row sum of exp
+  for (int t = 0; t < n_tiles; ++t) {
+    mbar_wait(full0 + 8 * stage, phase);
+    scores(s, desc_q, stage0 + stage * kStageBytes);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * stage);
+    row_stats_update(s, m, l);
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  float inv_l[2];
+  row_inv_sum(l, inv_l);
+
+  // ---- pass 2: P = bf16(exp(s - m) / l), O += P V
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+  for (int t = 0; t < n_tiles; ++t) {
+    mbar_wait(full0 + 8 * stage, phase);
+    const uint32_t tile = stage0 + stage * kStageBytes;
+    scores(s, desc_q, tile);
+    // one 64-key half at a time: the first half's P V runs while the second
+    // half's p is formed, and the scores die as p is packed (128 registers
+    // with no spill; p for the whole tile at once spilled)
+    const uint64_t desc_v = desc_sw128(tile + kTileBytes);
+    uint32_t p[2][16];
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      p_fragments(s[n], m, inv_l, p[n]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {  // 16 keys = 16 rows of 128 B
+        wgmma_m64n64k16_rs<1>(acc, p[n][4 * kk], p[n][4 * kk + 1], p[n][4 * kk + 2],
+                              p[n][4 * kk + 3], desc_v + (4 * n + kk) * (16 * 128 >> 4), 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    fence_regs(p[0]);
+    fence_regs(p[1]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * stage);
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  if (!wg_valid) return;
+  float* og = o + ((long long)bh * nq + wg_row0) * kD;
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      *reinterpret_cast<float2*>(og + (g + 8 * h) * kD + 8 * j + c2) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
   }
 }
 
 }  // namespace
 
-// q: (BH, nq, 64), k/v: (BH, nk, 64), o: (BH, nq, 64), all f32 contiguous.
-// nq and nk must be multiples of 64. Returns the launch's cudaError_t.
-extern "C" int facet_cross_attention(const void* q, const void* k,
-                                     const void* v, void* o, int bh, int nq,
-                                     int nk, int d, void* stream) {
-  if (d != kD || nq % kQT != 0 || nk % kKT != 0 || bh <= 0) {
+// q: (BH, nq, 64), k/v: (BH, nk, 64), o: (BH, nq, 64), all f32 contiguous;
+// scratch: (2, BH * nk, 64) bf16 for the converted K and V. nq must be a
+// multiple of 64, nk of 128. Returns the launches' cudaError_t.
+extern "C" int facet_cross_attention(const void* q, const void* k, const void* v,
+                                     void* o, void* scratch, int bh, int nq, int nk,
+                                     int d, void* stream) {
+  if (d != kD || nq <= 0 || nq % kRowsPerWg != 0 || nk <= 0 || nk % kKT != 0 ||
+      bh <= 0 || bh > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      cross_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long rows = (long long)bh * nk;
+  const long long n8 = rows * kD / 8;
+  to_bf16_kernel<<<dim3(264, 2), 256, 0, st>>>(
+      static_cast<const float4*>(k), static_cast<const float4*>(v),
+      static_cast<uint4*>(scratch), n8);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  cross_attention_kernel<<<dim3(nq / kQT, bh), kThreads, kSmemBytes,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), nq, nk);
+
+  const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(scratch);
+  CUtensorMap k_map, v_map;
+  const cuuint64_t dims[2] = {(cuuint64_t)kD, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {kD * 2};
+  const cuuint32_t box[2] = {kD, kKT};
+  if (!make_bf16_map(&k_map, kb, 2, dims, strides, box) ||
+      !make_bf16_map(&v_map, kb + rows * kD, 2, dims, strides, box)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  err = cudaFuncSetAttribute(cross_attention_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  cross_attention_kernel<<<dim3((nq + kQT - 1) / kQT, bh), kThreads, kSmemBytes, st>>>(
+      k_map, v_map, static_cast<const float*>(q), static_cast<float*>(o), nq, nk);
   return (int)cudaGetLastError();
+}
+
+// The main kernel's grid at (bh, nq, nk), reckoned from its tiling: its
+// blocks, the blocks resident per SM (as the runtime reckons them), the
+// bytes staged into shared memory (each block's bf16 Q rows once, its head's
+// bf16 K twice and V once) and the bytes of those K and V copies, which
+// read through L2.
+extern "C" int facet_cross_attention_geometry(int bh, int nq, int nk, int* blocks,
+                                              int* blocks_per_sm, long long* staged_bytes,
+                                              long long* l2_bytes) {
+  if (bh <= 0 || nq <= 0 || nk <= 0) return (int)cudaErrorInvalidValue;
+  *blocks = (nq + kQT - 1) / kQT * bh;
+  *l2_bytes = (long long)*blocks * 3 * nk * kD * 2;
+  *staged_bytes = *l2_bytes + (long long)*blocks * kQBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      cross_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, cross_attention_kernel, kThreads, kSmemBytes);
 }

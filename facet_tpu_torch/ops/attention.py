@@ -5,10 +5,14 @@
 for (B, H, Nq, D) pre-scaled queries over (B, H, Nk, D) keys/values, with
 bf16 operands, f32 scores and softmax, p normalized then rounded to bf16,
 and f32 accumulation of P V. On a CUDA tensor it launches the CUDA kernel in
-``csrc/cross_attention.cu`` (head dim 64); on a CPU tensor it computes the
-plain twin ``cross_attention_plain``. ``supported_shape`` is the JAX
+``csrc/cross_attention.cu`` (head dim 64: a prologue that converts K and V
+to bf16 into scratch the wrapper allocates, then two passes of wgmma over
+TMA-staged tiles); on a CPU tensor it computes the plain twin
+``cross_attention_plain``. ``supported_shape`` is the JAX
 package's gate, unchanged, so both packages route the same levels.
 """
+
+import ctypes
 
 import torch
 
@@ -76,15 +80,31 @@ def cross_attention(q, k, v, q_block=None):
     if d != KERNEL_HEAD_DIM:
         raise ValueError(f"cross_attention kernel takes head dim "
                          f"{KERNEL_HEAD_DIM}, got {d}")
+    nk = k.shape[2]
     lib = cuda_build.library()
     out = torch.empty_like(q)
+    scratch = torch.empty((2, b * h * nk, d), dtype=torch.bfloat16, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.facet_cross_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b * h, nq, k.shape[2], d, torch.cuda.current_stream().cuda_stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            b * h, nq, nk, d, torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, "cross_attention")
     cross_attention.launches += 1
     return out
 
 
 cross_attention.launches = 0
+
+
+def geometry(b, h, nq, nk):
+    """The kernel's grid at (b, h, nq, nk), as csrc/cross_attention.cu
+    reckons it from its tiling (a card is needed): blocks, blocks resident
+    per SM, bytes staged into shared memory, bytes of K and V read through
+    L2."""
+    blocks, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    staged, l2 = ctypes.c_longlong(0), ctypes.c_longlong(0)
+    cuda_build.check(cuda_build.library().facet_cross_attention_geometry(
+        b * h, nq, nk, ctypes.byref(blocks), ctypes.byref(per_sm), ctypes.byref(staged),
+        ctypes.byref(l2)), "cross_attention geometry")
+    return {"blocks": blocks.value, "blocks_per_sm": per_sm.value,
+            "staged_bytes": staged.value, "l2_bytes": l2.value}

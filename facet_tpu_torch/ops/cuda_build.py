@@ -8,6 +8,11 @@ one shared library with a plain C interface under ``build/kernels/``
 (listed in ``.gitignore``), named by a hash of the sources and flags, and
 loaded with ctypes. Nothing is built when the module is imported: the CPU
 tests import every module and have no nvcc.
+
+The library links no ``libcuda``: the attention kernels' TMA tensor maps
+are encoded by libcuda's ``cuTensorMapEncodeTiled``, which
+``csrc/hopper.cuh`` looks up at run time through the CUDA runtime's
+``cudaGetDriverEntryPointByVersion``, so the build needs CUDA 12.5 or later.
 """
 
 import ctypes
@@ -28,14 +33,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
+_LP = ctypes.POINTER(ctypes.c_longlong)
 # C entry point -> argument types (pointers and the stream are c_void_p)
 SIGNATURES = {
     "facet_hs_entropy": [_P, _P, _P, _P, _I, _L, _I, _I, _L, _P],
-    "facet_cross_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "facet_cross_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "facet_gray_stats": [_P, _P, _P, _I, _I, _I, _I, _P],
     "facet_fused_stats": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _P],
     "facet_row_softmax": [_P, _P, _L, _I, _P],
     "facet_vit_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "facet_cross_attention_geometry": [_I, _I, _I, _IP, _IP, _LP, _LP],
+    "facet_vit_attention_geometry": [_I, _I, _I, _IP, _IP, _LP],
 }
 
 _lib = None

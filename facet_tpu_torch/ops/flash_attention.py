@@ -9,12 +9,15 @@ of 128, the padding masked by segment ids), and its single-block body
 computes: f32 scores from the unscaled q and k, times ``scale``; row max,
 exp and row sum in f32; p / sum rounded to v's dtype; P V accumulated in
 f32 and rounded once to the output dtype. On a CUDA tensor this launches
-``csrc/vit_attention.cu`` (bf16, head dim 64, no padding in device memory:
-the kernel excludes keys past S itself); on a CPU tensor it computes the
-plain twin ``flash_attention_plain``. The engine runs it with
+``csrc/vit_attention.cu`` (bf16, head dim 64, one block per (batch, head)
+that stages the head's K and V once by TMA and runs wgmma; no padding in
+device memory: the kernel excludes keys past S itself); on a CPU tensor it
+computes the plain twin ``flash_attention_plain``. The engine runs it with
 ``FACET_ATTN_IMPL=flash`` (``models/clip.py``, which also refuses the TPU
 block sizes that would split the keys into several blocks).
 """
+
+import ctypes
 
 import torch
 
@@ -22,7 +25,7 @@ from facet_tpu_torch.ops import cuda_build
 from facet_tpu_torch.ops.precision import full_float32
 
 KERNEL_HEAD_DIM = 64
-MAX_SEQ = 400       # the kernel stages a head's keys and values in shared memory
+MAX_SEQ = 400       # the kernel holds a head's keys and values in shared memory
 
 
 def _check(q, k, v):
@@ -82,3 +85,15 @@ def flash_attention(q, k, v, scale):
 
 
 flash_attention.launches = 0
+
+
+def geometry(b, s, h):
+    """The kernel's grid at (b, s, h), as csrc/vit_attention.cu reckons it
+    from its tiling (a card is needed): blocks, blocks resident per SM,
+    bytes staged into shared memory."""
+    blocks, per_sm, staged = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_longlong(0)
+    cuda_build.check(cuda_build.library().facet_vit_attention_geometry(
+        b, s, h, ctypes.byref(blocks), ctypes.byref(per_sm), ctypes.byref(staged)),
+        "flash_attention geometry")
+    return {"blocks": blocks.value, "blocks_per_sm": per_sm.value,
+            "staged_bytes": staged.value}

@@ -32,11 +32,11 @@ def softmax_plain(scores):
     return (e / e.sum(dim=-1, keepdim=True)).to(scores.dtype)
 
 
-def softmax(scores, head_block=None):
+def softmax(scores):
     """(B, H, Q, K) scores -> row softmax over K, in the scores' dtype.
 
-    ``head_block`` is the TPU kernel's heads per grid step, a tiling knob
-    with no counterpart here: it is accepted and ignored.
+    The TPU kernel's ``head_block`` (heads per grid step) has no
+    counterpart: the CUDA kernel gives each row its own warp.
     """
     _check(scores)
     if scores.device.type == "cpu":

@@ -12,7 +12,9 @@ up to 2.2e-5 from the exact value); attention 2e-3, the bound
 tests/test_pallas_attn.py:47 pins for the TPU kernel against a bf16 oracle
 (measured here: the twin and the interpret-mode kernel differ by up to
 3.4e-4, where exp rounding flips a bf16 rounding of p), and 3e-4 for the
-error's RMS relative to the output's, which sees where p is rounded.
+error's RMS relative to the output's, which sees where p is rounded
+(rounding exp(s - m) before dividing by l, an online softmax's order,
+reads 2.2e-3).
 The ViT's two attention kernels work in bf16: the row softmax (kernel 6)
 within one bf16 ulp of ``softmax_pallas`` element by element (measured: 25
 of 2.1 million elements differ, each by one ulp, where f32 exp or sum order
@@ -213,10 +215,10 @@ def test_attention_twin_matches_pallas(b, h, nq, nk, d, qb):
     got = attention.cross_attention(torch.from_numpy(q), torch.from_numpy(k),
                                     torch.from_numpy(v), q_block=qb).numpy()
     np.testing.assert_allclose(got, want, atol=2e-3, rtol=2e-3)
-    # the same rounding points as the TPU kernel, element by element
-    rel_rms = np.sqrt(np.mean((got - want).astype(np.float64) ** 2)
-                      / np.mean(want.astype(np.float64) ** 2))
-    assert rel_rms <= 3e-4
+    # the same rounding points as the TPU kernel, element by element; the
+    # planted other order (an online softmax's) is outside the limit
+    assert _rel_rms(got, want) <= 3e-4
+    assert _rel_rms(_cross_round_then_normalize(q, k, v), want) > 3e-4
 
 
 def test_supported_shape_gate_agrees():
@@ -273,15 +275,29 @@ def test_softmax_twin_matches_pallas(shape):
 
 
 def test_softmax_wrapper():
-    """head_block (the TPU's heads per grid step) is accepted and ignored;
-    float32 scores stay float32 on the CPU; the shape is checked."""
+    """float32 scores stay float32 on the CPU and equal the twin; the shape
+    is checked."""
     s = torch.from_numpy(_bf16((1, 4, 9, 11), 3, 4.0))
     launches = softmax.softmax.launches
-    assert torch.equal(softmax.softmax(s, head_block=4), softmax.softmax(s))
+    assert torch.equal(softmax.softmax(s), softmax.softmax_plain(s))
     assert softmax.softmax(s).dtype == torch.float32
     assert softmax.softmax.launches == launches       # the twin, not the kernel
     with pytest.raises(ValueError):
         softmax.softmax(s[0])
+
+
+def _to_bf16(x):
+    """float64 numpy of x rounded to bf16."""
+    return torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16).double().numpy()
+
+
+def _cross_round_then_normalize(q, k, v):
+    """Kernel 2's planted variant: exp(s - m) rounded to bf16 before it is
+    divided by l (what a one-pass online softmax does), as float64 numpy."""
+    qb, kb, vb = (_to_bf16(x) for x in (q, k, v))
+    s = (qb @ kb.transpose(0, 1, 3, 2)).astype(np.float32)
+    e = np.exp(s - s.max(-1, keepdims=True))
+    return (_to_bf16(e) @ vb) / e.sum(-1, keepdims=True, dtype=np.float64)
 
 
 def _round_then_normalize(q, k, v, scale):
@@ -290,8 +306,7 @@ def _round_then_normalize(q, k, v, scale):
     qt, kt, vt = (np.asarray(x, np.float64).transpose(0, 2, 1, 3) for x in (q, k, v))
     s = (qt @ kt.transpose(0, 1, 3, 2)).astype(np.float32) * np.float32(scale)
     e = np.exp(s - s.max(-1, keepdims=True))
-    p = torch.from_numpy(e).to(torch.bfloat16).double().numpy()
-    out = (p @ vt) / e.sum(-1, keepdims=True, dtype=np.float64)
+    out = (_to_bf16(e) @ vt) / e.sum(-1, keepdims=True, dtype=np.float64)
     return out.transpose(0, 2, 1, 3)
 
 
@@ -383,13 +398,17 @@ def test_gray_stats_kernel_matches_twin(cuda, shape):
 
 
 @pytest.mark.cuda
-def test_attention_kernel_matches_twin(cuda):
-    """The largest error only catches gross faults; the error's RMS relative
-    to the output's RMS checks that p is rounded to bf16 where the twin
-    rounds it (chip_smoke.py states both limits' basis)."""
-    q = torch.from_numpy(_rand((2, 4, 1024, 64), 1) / 8).to(cuda)
-    k = torch.from_numpy(_rand((2, 4, 256, 64), 2)).to(cuda)
-    v = torch.from_numpy(_rand((2, 4, 256, 64), 3)).to(cuda)
+@pytest.mark.parametrize("nq,nk", [(1024, 256), (1024, 128), (1024, 384), (1536, 128)])
+def test_attention_kernel_matches_twin(cuda, nq, nk):
+    """The smallest gated shapes (1024 queries: a 192-row query tile with
+    a ragged last block; 128 keys: one key stage; 384: three) and 1536
+    queries (whole tiles). The largest error only catches gross faults; the
+    error's RMS relative to the output's RMS checks that p is rounded to
+    bf16 where the twin rounds it (chip_smoke.py states both limits'
+    basis)."""
+    q = torch.from_numpy(_rand((2, 4, nq, 64), 1) / 8).to(cuda)
+    k = torch.from_numpy(_rand((2, 4, nk, 64), 2)).to(cuda)
+    v = torch.from_numpy(_rand((2, 4, nk, 64), 3)).to(cuda)
     got = attention.cross_attention(q, k, v)
     want = attention.cross_attention_plain(q, k, v)
     diff = (got - want).double()
@@ -407,8 +426,10 @@ def test_softmax_kernel_matches_twin(cuda, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s", [(2, 257), (2, 37)])
+@pytest.mark.parametrize("b,s", [(2, 257), (2, 37), (2, 65), (2, 400)])
 def test_flash_attention_kernel_matches_twin(cuda, b, s):
+    """257 tokens: a lone last query row and key; 37: one partial tile; 65:
+    one row past a 64-row tile; 400: the longest sequence the kernel takes."""
     q, k, v = (torch.from_numpy(_bf16((b, s, 16, 64), seed, scale)).to(cuda).to(torch.bfloat16)
                for seed, scale in ((5, 1.5), (6, 1.0), (7, 1.0)))
     got = flash_attention.flash_attention(q, k, v, 0.125).float().cpu().numpy()
