@@ -1,7 +1,7 @@
 """Smoke test of the PyTorch/CUDA port (facet_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --ab OTHER_TREE
+    python3 chip_smoke.py --ab OTHER_TREE [CHECK ...]
 
 Phases, in order; any failure exits non-zero and nothing is caught:
 
@@ -24,10 +24,13 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    PyTorch call computes the same function, that call's time on the same
    inputs (F.scaled_dot_product_attention for kernels 2 and 7,
    torch.softmax for kernel 6: yardsticks only, the port never calls
-   them). Kernels 2 and 7 also report, at the main path's shape, their and
-   SDPA's device time per call replayed from a CUDA graph (no host launch
-   cost), resident blocks per SM and the bytes staged into shared memory
-   (for kernel 2 also through L2), reckoned from the grid; then the whole
+   them). At the main path's shape each also reports its device time per
+   call replayed from a CUDA graph (no host launch cost), and so do SDPA
+   and torch.softmax beside kernels 2, 7 and 6; kernels 1
+   and 4 split their device time by launch (torch.profiler), and kernel 1
+   must return bit-identical entropy on three calls. Kernels 2 and 7 report
+   resident blocks per SM and the bytes staged into shared memory (for
+   kernel 2 also through L2), reckoned from the grid; then the whole
    statistics prepass is timed in both
    configurations, and the ViT-L/14 forward under each attention schedule;
 4. the slice: ``python -m facet_tpu_torch <dir> --pass quality`` in-process
@@ -50,11 +53,16 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 The second-to-last line is the kernel report, a JSON object; the last line
 is {"ok": true, "device": {...}}.
 
-With ``--ab OTHER_TREE`` it runs only the checks of kernels 2 and 7, of
-another checkout of the repo and of this one in turns on one card (other,
-this, this, other), each tree with its own chip_smoke.py in a process of
-its own, so each builds and times its own kernels. For a parent commit:
-``mkdir -p build/parent && git archive <commit> | tar -x -C build/parent``.
+With ``--ab OTHER_TREE [CHECK ...]`` it runs only the kernel checks
+(``softmax`` for kernel 6, ``entropy`` for kernel 1, ``entropy_fixed``
+for kernel 3, ``fused_stats`` for kernel 4, ``gray_stats`` for kernel 5,
+``attention`` for kernel 2, ``vit_attention`` for kernel 7; all seven when
+none is named) on the kernels of another checkout of the repo
+and of this one in turns on one card (other, this, this, other), each tree
+in a process of its own that builds that tree's kernels; the checks and
+timers are this file's, so both trees are measured alike. For a parent
+commit: ``mkdir -p build/parent && git archive <commit> | tar -x -C
+build/parent``.
 """
 
 import importlib.util
@@ -159,20 +167,69 @@ def cuda_median_ms(fn, reps=10, warmup=2):
     return float(np.median(times))
 
 
-def graph_ms(fn, launches=20):
+def graph_ms(fn, launches=20, before=None):
     """Device time per call without the host's launch cost: ``launches``
     calls captured in one CUDA graph, the replay timed as cuda_median_ms
-    times it, divided by ``launches``."""
+    times it, divided by ``launches``. With ``before``, each call follows a
+    call of ``before`` in the graph, and the time of a graph of ``before``
+    alone is taken off."""
+    def replay_ms(calls):
+        for call in calls:
+            call()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(launches):
+                for call in calls:
+                    call()
+        ms = cuda_median_ms(graph.replay) / launches
+        del graph
+        torch.cuda.empty_cache()
+        return ms
+
+    if before is None:
+        return replay_ms([fn])
+    return replay_ms([before, fn]) - replay_ms([before])
+
+
+def host_ms(fn, calls=100):
+    """Host time per call of ``fn``, its calls enqueued back to back with no
+    synchronize between them: the launch path on the host's clock."""
     fn()
     torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(launches):
-            fn()
-    ms = cuda_median_ms(graph.replay) / launches
-    del graph
-    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
     return ms
+
+
+def device_split(fn, reps=10):
+    """Device time per call of each kernel that ``fn`` launches, from
+    torch.profiler over ``reps`` calls -> {kernel name: ms per call}."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if us > 0:
+            name = evt.key.replace("(anonymous namespace)::", "").replace("void ", "")
+            split[name.split("(")[0]] = us / 1e3 / reps
+    return split
+
+
+def split_line(split):
+    if not split:
+        return "the profiler recorded no device time"
+    return ", ".join(f"{name} {ms:.4f}" for name, ms in split.items()) + " ms"
 
 
 def synthetic_photos(n, h, w, seed, degenerate=False):
@@ -230,19 +287,37 @@ def stats_batch(b, h, w, seed):
 
 def check_entropy(gpu):
     """Kernel 1 vs its twin: the scan's own batches (the reported time is
-    the first), the fast tier's stride 4 and an odd h*w; exact histograms.
+    the first), the fast tier's stride 4, an odd h*w, an image whose
+    pixels all fall into one bin, and the scan's batch with hue and
+    saturation drawn uniformly, every bin filled (timed in a CUDA graph
+    too: the most histogram traffic); exact histograms. At the first shape two
+    more calls must return bit-identical entropy, and the kernel is also
+    timed in a CUDA graph, with its device time split by launch (profiler).
     Its bound: the int32 hue and saturation it reads, 8 B per counted
     pixel."""
     report = {"max_abs_err": 0.0}
     cases = [(n, h, w, 1) for (h, w), n in zip(SCAN_SHAPES, SCAN_COUNTS)]
     cases += [(16, 1024, 1536, 1), (16, 1024, 1536, 4), (3, 37, 53, 1),
-              (3, 37, 53, 4)]
-    for b, h, w, stride in cases:
-        imgs = np.stack(synthetic_photos(b, h, w, seed=h + stride))
-        rgb = torch.from_numpy(imgs).cuda()
-        hh, ss, _ = rgb_to_hsv(rgb)
-        hue = hh.reshape(b, -1).contiguous()
-        sat = ss.reshape(b, -1).contiguous()
+              (3, 37, 53, 4), ("one bin", 2, 37, 53, 1),
+              ("uniform", SCAN_COUNTS[0], *SCAN_SHAPES[0], 1)]
+    for case in cases:
+        kind = case[0] if isinstance(case[0], str) else ""
+        b, h, w, stride = case[1:] if kind else case
+        if kind == "one bin":    # every pixel in one bin: entropy 0
+            hue = torch.full((b, h * w), 17, dtype=torch.int32, device="cuda")
+            sat = torch.full((b, h * w), 201, dtype=torch.int32, device="cuda")
+        elif kind == "uniform":  # every bin filled: the most histogram traffic
+            g = torch.Generator(device="cuda").manual_seed(180)
+            hue = torch.randint(0, 180, (b, h * w), generator=g, device="cuda",
+                                dtype=torch.int32)
+            sat = torch.randint(0, 256, (b, h * w), generator=g, device="cuda",
+                                dtype=torch.int32)
+        else:
+            imgs = np.stack(synthetic_photos(b, h, w, seed=h + stride))
+            rgb = torch.from_numpy(imgs).cuda()
+            hh, ss, _ = rgb_to_hsv(rgb)
+            hue = hh.reshape(b, -1).contiguous()
+            sat = ss.reshape(b, -1).contiguous()
         got, hist = entropy.hs_entropy_with_histogram(hue, sat, stride)
         want = entropy.hs_entropy_plain(hue, sat, stride)
         want_hist = entropy.hs_histogram_plain(hue, sat, stride)
@@ -259,10 +334,27 @@ def check_entropy(gpu):
         n_eff = b * -(-h * w // stride)
         bound_ms, bound_by = bound(n_eff * 8 + b * 4,
                                    n_eff * OPS_PER_PIXEL["hs_entropy"], FP32_OPS)
-        phase("kernels", f"hs_entropy B={b} {h}x{w} stride={stride}: histogram "
-                         f"exact, max|d entropy|={err:.3g}, kernel {ms:.3f} ms, "
+        extra = ""
+        if kind == "uniform":
+            extra = (f"; in a CUDA graph "
+                     f"{graph_ms(lambda: entropy.hs_entropy(hue, sat, stride)):.4f} ms")
+        if "ms" not in report:
+            again = [entropy.hs_entropy(hue, sat, stride) for _ in range(2)]
+            if not all(torch.equal(x, got) for x in again):
+                raise AssertionError("hs_entropy is not bit-identical across calls "
+                                     f"at {(b, h, w, stride)}")
+            report["graph_ms"] = graph_ms(lambda: entropy.hs_entropy(hue, sat, stride))
+            split = device_split(lambda: entropy.hs_entropy(hue, sat, stride))
+            host = host_ms(lambda: entropy.hs_entropy(hue, sat, stride))
+            extra = (f"; bit-identical over three calls; host launch path per call "
+                     f"{host * 1e3:.1f} us; in a CUDA graph "
+                     f"{report['graph_ms']:.4f} ms ({bound_ms / report['graph_ms']:.0%} "
+                     f"of its bound); device time by launch: {split_line(split)}")
+        phase("kernels", f"hs_entropy {kind + ' ' if kind else ''}B={b} {h}x{w} "
+                         f"stride={stride}: histogram "
+                         f"exact, max|d entropy|={err:.3g}, kernel {ms:.4f} ms, "
                          f"twin {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-                         f"({bound_by}) ({gpu})")
+                         f"({bound_by}){extra} ({gpu})")
         if "ms" not in report:
             report.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=None)
@@ -295,9 +387,14 @@ def check_entropy_fixed(gpu):
             lambda: entropy.hs_entropy_plain(hue, sat, n_valid=n_valid))
         bound_ms, bound_by = bound(b * h * w * 8 + b * 4,
                                    b * h * w * OPS_PER_PIXEL["hs_entropy"], FP32_OPS)
+        extra = ""
+        if "ms" not in report:
+            report["graph_ms"] = graph_ms(
+                lambda: entropy.hs_entropy(hue, sat, n_valid=n_valid))
+            extra = f"; in a CUDA graph {report['graph_ms']:.4f} ms"
         phase("kernels", f"hs_entropy n_valid B={b} {h}x{w}: max|d entropy|="
-                         f"{err:.3g}, kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, "
-                         f"bound {bound_ms:.4f} ms ({bound_by}) ({gpu})")
+                         f"{err:.3g}, kernel {ms:.4f} ms, twin {plain_ms:.3f} ms, "
+                         f"bound {bound_ms:.4f} ms ({bound_by}){extra} ({gpu})")
         if "ms" not in report:
             report.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=None)
@@ -328,10 +425,17 @@ def check_fused_stats(gpu):
         plain_ms = cuda_median_ms(lambda: fused_stats.fused_stats_plain(rgb))
         bound_ms, bound_by = bound(b * h * w * 3 + b * (4 + 256 * 4 + 16),
                                    b * h * w * OPS_PER_PIXEL["fused_stats"], FP32_OPS)
+        extra = ""
+        if "ms" not in report:
+            report["graph_ms"] = graph_ms(lambda: fused_stats.fused_stats(rgb))
+            split = device_split(lambda: fused_stats.fused_stats(rgb))
+            extra = (f"; in a CUDA graph {report['graph_ms']:.4f} ms "
+                     f"({bound_ms / report['graph_ms']:.0%} of its bound); device "
+                     f"time by launch: {split_line(split)}")
         phase("kernels", f"fused_stats B={b} {h}x{w}: histogram and saturation "
-                         f"exact, max|d entropy|={err:.3g}, kernel {ms:.3f} ms, "
+                         f"exact, max|d entropy|={err:.3g}, kernel {ms:.4f} ms, "
                          f"twin {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-                         f"({bound_by}) ({gpu})")
+                         f"({bound_by}){extra} ({gpu})")
         if "ms" not in report:
             report.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=None)
@@ -357,9 +461,14 @@ def check_gray_stats(gpu):
         plain_ms = cuda_median_ms(lambda: gray_stats.fused_gray_stats_plain(gray))
         bound_ms, bound_by = bound(b * h * w * 4 + b * (256 * 4 + 3 * 8),
                                    b * h * w * OPS_PER_PIXEL["gray_stats"], FP32_OPS)
+        extra = ""
+        if "ms" not in report:
+            report["graph_ms"] = graph_ms(lambda: gray_stats.fused_gray_stats(gray))
+            extra = (f"; in a CUDA graph {report['graph_ms']:.4f} ms "
+                     f"({bound_ms / report['graph_ms']:.0%} of its bound)")
         phase("kernels", f"gray_stats B={b} {h}x{w}: every output exact, kernel "
-                         f"{ms:.3f} ms, twin {plain_ms:.3f} ms, bound "
-                         f"{bound_ms:.4f} ms ({bound_by}) ({gpu})")
+                         f"{ms:.4f} ms, twin {plain_ms:.3f} ms, bound "
+                         f"{bound_ms:.4f} ms ({bound_by}){extra} ({gpu})")
         if "ms" not in report:
             report.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=None)
@@ -463,16 +572,29 @@ def bf16_ulp(x):
 
 def check_softmax(gpu):
     """Kernel 6 vs its twin: the ViT's scores at the scan's batches (the
-    reported time is the first) and (3, 3, 37, 53) for odd rows, bf16 at
-    the ViT's scale (x4, as tests/test_pallas_softmax.py makes them). Every
-    element within one bf16 ulp of the twin, row sums within ROW_SUM_TOL.
-    Its bound: the scores read once and the probabilities written once; its
-    library yardstick: torch.softmax on the same bf16 tensor."""
+    reported time is the first), then the kernel's edge paths: (3, 3, 37,
+    53) (whole row groups and a ragged last one), (1, 3, 37, 53) (fewer
+    rows than a group), rows of 1024 (the widest it takes) and of 1, and
+    (2, 16, 257, 257) at a base 2 bytes off a 16-byte boundary ("offset");
+    bf16 at the ViT's scale (x4, as tests/test_pallas_softmax.py makes
+    them). Every element within one bf16 ulp of the twin, row sums within
+    ROW_SUM_TOL. Its bound: the scores read once and the probabilities
+    written once; its library yardstick: torch.softmax on the same bf16
+    tensor. At the first shape both are also timed in a CUDA graph, as they
+    are (the 50.7 MB input last read one call before, with the 50.7 MB
+    output written since) and right after the input is written anew, as
+    the ViT's QK^T product leaves it."""
     report = {"max_abs_err": 0.0}
-    cases = [(n, 16, 257, 257) for n in SCAN_COUNTS] + [(3, 3, 37, 53)]
-    for shape in cases:
+    cases = [(n, 16, 257, 257) for n in SCAN_COUNTS]
+    cases += [(3, 3, 37, 53), (1, 3, 37, 53), (2, 2, 9, 1024), (1, 2, 5, 1),
+              ("offset", 2, 16, 257, 257)]
+    for case in cases:
+        offset = case[0] == "offset"
+        shape = case[1:] if offset else case
         g = torch.Generator(device="cuda").manual_seed(sum(shape))
         s = (torch.randn(shape, generator=g, device="cuda") * 4.0).to(torch.bfloat16)
+        if offset:
+            s = torch.cat([s.new_zeros(1), s.reshape(-1)])[1:].view(shape)
         got = softmax.softmax(s).float()
         want = softmax.softmax_plain(s).float()
         torch.cuda.synchronize()
@@ -490,11 +612,34 @@ def check_softmax(gpu):
         library_ms = cuda_median_ms(lambda: torch.softmax(s, dim=-1))
         bound_ms, bound_by = bound(s.numel() * 2 * 2,
                                    s.numel() * SOFTMAX_OPS_PER_ELEMENT, FP32_OPS)
-        phase("kernels", f"softmax {shape}: within one bf16 ulp, {n_diff} of "
-                         f"{s.numel()} elements differ, max|d|={err:.3g}, max|row "
-                         f"sum - 1|={row_err:.3g}, kernel {ms:.4f} ms, twin "
-                         f"{plain_ms:.3f} ms, torch.softmax {library_ms:.4f} ms, "
-                         f"bound {bound_ms:.4f} ms ({bound_by}) ({gpu})")
+        graphs = ""
+        if "ms" not in report:
+            report["graph_ms"] = graph_ms(lambda: softmax.softmax(s))
+            report["library_graph_ms"] = graph_ms(lambda: torch.softmax(s, dim=-1))
+            fresh = s.clone()
+
+            def write():
+                fresh.copy_(s)
+
+            warm = graph_ms(lambda: softmax.softmax(fresh), before=write)
+            library_warm = graph_ms(lambda: torch.softmax(fresh, dim=-1), before=write)
+            host = (host_ms(lambda: softmax.softmax(s)),
+                    host_ms(lambda: torch.softmax(s, dim=-1)))
+            graphs = (f"; host launch path per call: kernel {host[0] * 1e3:.1f} us, "
+                      f"torch.softmax {host[1] * 1e3:.1f} us"
+                      f"; in a CUDA graph: kernel {report['graph_ms']:.4f} ms, "
+                      f"torch.softmax {report['library_graph_ms']:.4f} ms (kernel "
+                      f"{report['graph_ms'] / report['library_graph_ms']:.2f}x "
+                      f"torch.softmax, {bound_ms / report['graph_ms']:.0%} of its "
+                      f"bound); right after its input is written: kernel "
+                      f"{warm:.4f} ms, torch.softmax {library_warm:.4f} ms")
+            del fresh
+        phase("kernels", f"softmax {'offset ' if offset else ''}{shape}: within one "
+                         f"bf16 ulp, {n_diff} of {s.numel()} elements differ, "
+                         f"max|d|={err:.3g}, max|row sum - 1|={row_err:.3g}, kernel "
+                         f"{ms:.4f} ms, twin {plain_ms:.3f} ms, torch.softmax "
+                         f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                         f"({bound_by}){graphs} ({gpu})")
         if "ms" not in report:
             report.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=library_ms)
@@ -858,12 +1003,27 @@ KERNELS = {
 }
 
 
-def ab_attention(other):
-    """Kernels 2 and 7 of the checkout ``other`` and of this one, in turns."""
-    here = os.path.dirname(os.path.abspath(__file__))
-    code = ("import chip_smoke as c; g = c.phase_device(); c.phase_build(); "
-            "c.check_attention(g); c.check_vit_attention(g)")
-    for tree in (other, here, here, other):
+# the checks that --ab runs, by name
+AB_CHECKS = ("softmax", "entropy", "entropy_fixed", "fused_stats", "gray_stats",
+             "attention", "vit_attention")
+
+
+def ab_kernels(other, names=AB_CHECKS):
+    """The checks ``names`` (check_<name>) of the kernels of the checkout
+    ``other`` and of this one, in turns (other, this, this, other), each in
+    a process of its own that imports that tree's facet_tpu_torch, builds
+    its kernels and runs this file's checks on them, so both trees are
+    timed by the same code."""
+    here = os.path.abspath(__file__)
+    unknown = set(names) - set(AB_CHECKS)
+    if unknown:
+        raise SystemExit(f"--ab: unknown checks {sorted(unknown)}; known: {AB_CHECKS}")
+    code = ("import importlib.util, sys; sys.path.insert(0, '.'); "
+            f"spec = importlib.util.spec_from_file_location('chip_smoke', {here!r}); "
+            "c = importlib.util.module_from_spec(spec); spec.loader.exec_module(c); "
+            "g = c.phase_device(); c.phase_build(); "
+            + "; ".join(f"c.check_{name}(g)" for name in names))
+    for tree in (other, os.path.dirname(here), os.path.dirname(here), other):
         phase("ab", os.path.abspath(tree))
         subprocess.run([sys.executable, "-c", code], cwd=tree, check=True)
     return 0
@@ -890,5 +1050,5 @@ def main():
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ab"]:
-        sys.exit(ab_attention(sys.argv[2]))
+        sys.exit(ab_kernels(sys.argv[2], sys.argv[3:] or AB_CHECKS))
     sys.exit(main())

@@ -19,13 +19,15 @@
 // the exact cv2 gray, S and H (the tables give round((255<<12)/v) and
 // round((180<<12)/(6d)), so H and S equal ops/colorspace.py:rgb_to_hsv bit
 // for bit), adds to both histograms with shared atomics and to a per-thread
-// int64 saturation sum. It writes exact partials: the H-S and gray
-// histograms as int32, the saturation as int64. Then kernel 1's reduce
-// (hs_reduce.cuh) sums the H-S partials and reduces the entropy normalized
-// by the in-range count, and a small kernel sums the gray partials and the
-// saturation, and splits the saturation total into the (>> 12, & 4095) pair.
+// int64 saturation sum. It adds its H-S histogram into kernel 1's
+// workspace and writes its in-range count there (hs_hist_add), and writes
+// exact partials of the gray histogram (int32) and the saturation (int64).
+// Then kernel 1's reduce (hs_reduce.cuh, spread over (bin range, image)
+// blocks) reduces the entropy normalized by the in-range count, and a
+// small kernel sums the gray partials and the saturation, and splits the
+// saturation total into the (>> 12, & 4095) pair.
 // No padding: the tail of the pixel stream is guarded by the pixel index.
-// No global atomics, so every output is reproducible run to run.
+// Integer atomics only, so every output is reproducible run to run.
 
 #include <cuda_runtime.h>
 
@@ -62,25 +64,27 @@ __device__ __forceinline__ Pixel convert(int r, int g, int b,
 
 // cv2's H lies in 0..179 and S in 0..255; the check only keeps a fault
 // from writing past the H-S histogram (kernel 1 checks the same way)
-__device__ __forceinline__ void add_pixel(int* hs, int* gh, long long& sat,
+__device__ __forceinline__ void add_pixel(int* hs, int* gh, long long& sat, int& count,
                                           const Pixel& p) {
   if ((unsigned)p.h < (unsigned)kHueBins && (unsigned)p.s < (unsigned)kSatBins) {
     atomicAdd(&hs[p.h * kSatBins + p.s], 1);
+    ++count;
   }
   atomicAdd(&gh[p.gray], 1);
   sat += p.s;
 }
 
 __global__ void __launch_bounds__(kThreads)
-fused_stats_partial(const unsigned char* __restrict__ rgb,
-                    int* __restrict__ hs_partial, int* __restrict__ gray_partial,
-                    long long* __restrict__ sat_partial, long long n) {
+fused_stats_partial(const unsigned char* __restrict__ rgb, HsWorkspace ws,
+                    int* __restrict__ gray_partial, long long* __restrict__ sat_partial,
+                    long long n) {
   extern __shared__ int4 smem4[];
   int* hs = reinterpret_cast<int*>(smem4);
   int* gh = hs + kBins;
   int* sdiv = gh + 256;
   int* hdiv = sdiv + 256;
   __shared__ long long scratch[32];
+  __shared__ int scratch_count[32];
   const int slice = blockIdx.x;
   const int slices = gridDim.x;
   const int b = blockIdx.y;
@@ -102,6 +106,7 @@ fused_stats_partial(const unsigned char* __restrict__ rgb,
   const unsigned char* img = rgb + (long long)b * n * 3;
   const long long step = (long long)blockDim.x;
   long long sat = 0;
+  int count = 0;
 
   long long j = lo + threadIdx.x;
   // main loop: kUnroll independent pixels in flight per thread
@@ -116,18 +121,19 @@ fused_stats_partial(const unsigned char* __restrict__ rgb,
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      add_pixel(hs, gh, sat, convert(r[u], g[u], bl[u], sdiv, hdiv));
+      add_pixel(hs, gh, sat, count, convert(r[u], g[u], bl[u], sdiv, hdiv));
     }
   }
   for (; j < hi; j += step) {
     const unsigned char* px = img + j * 3;
-    add_pixel(hs, gh, sat, convert(__ldg(px), __ldg(px + 1), __ldg(px + 2), sdiv, hdiv));
+    add_pixel(hs, gh, sat, count,
+              convert(__ldg(px), __ldg(px + 1), __ldg(px + 2), sdiv, hdiv));
   }
   sat = block_sum(sat, scratch);   // its __syncthreads also fences the atomics
+  count = block_sum(count, scratch_count);
 
+  hs_hist_add(smem4, ws, b, slice, slices, count);
   const long long part = (long long)b * slices + slice;
-  int4* out = reinterpret_cast<int4*>(hs_partial + part * kBins);
-  for (int i = threadIdx.x; i < kBins / 4; i += blockDim.x) out[i] = smem4[i];
   for (int i = threadIdx.x; i < 256; i += blockDim.x) {
     gray_partial[part * 256 + i] = gh[i];
   }
@@ -153,31 +159,33 @@ fused_stats_finish(const int* __restrict__ gray_partial,
   }
 }
 
+unsigned long long g_smem_allowed = 0;   // devices where the opt-in is made
+
 }  // namespace
 
-// rgb: (B, n, 3) uint8, contiguous. Scratch: hs_partial (B, slices, 46080)
-// int32, gray_partial (B, slices, 256) int32, sat_partial (B, slices) int64.
-// Outputs: entropy (B,) float32, gray_hist (B, 256) int32, sat_pair (B, 2)
-// int64. Returns the cudaError_t of the launches.
-extern "C" int facet_fused_stats(const void* rgb, void* hs_partial,
+// rgb: (B, n, 3) uint8, contiguous. Scratch: hs_workspace, kernel 1's
+// workspace (facet_hs_workspace's int32s, 16-byte aligned), gray_partial
+// (B, slices, 256) int32, sat_partial (B, slices) int64. Outputs: entropy
+// (B,) float32, gray_hist (B, 256) int32, sat_pair (B, 2) int64. Returns
+// the cudaError_t of the launches.
+extern "C" int facet_fused_stats(const void* rgb, void* hs_workspace_base,
                                  void* gray_partial, void* sat_partial,
                                  void* entropy, void* gray_hist, void* sat_pair,
                                  int batch, long long n, int slices,
                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int smem = kSmemInts * (int)sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_stats_partial, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = allow_smem_once(fused_stats_partial, smem, g_smem_allowed);
+  if (err != cudaSuccess) return (int)err;
+  const HsWorkspace ws = hs_workspace(hs_workspace_base, batch);
+  err = hs_workspace_clear(ws, batch, st);
   if (err != cudaSuccess) return (int)err;
   fused_stats_partial<<<dim3(slices, batch), kThreads, smem, st>>>(
-      static_cast<const unsigned char*>(rgb), static_cast<int*>(hs_partial),
-      static_cast<int*>(gray_partial), static_cast<long long*>(sat_partial), n);
+      static_cast<const unsigned char*>(rgb), ws, static_cast<int*>(gray_partial),
+      static_cast<long long*>(sat_partial), n);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  hs_entropy_reduce<<<batch, kReduceThreads, 0, st>>>(
-      static_cast<const int*>(hs_partial), static_cast<float*>(entropy), slices,
-      0);
-  err = cudaGetLastError();
+  err = launch_hs_entropy_reduce(ws, static_cast<float*>(entropy), batch, slices, 0, st);
   if (err != cudaSuccess) return (int)err;
   fused_stats_finish<<<batch, 256, 0, st>>>(
       static_cast<const int*>(gray_partial),

@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the two attention kernels
 // (cross_attention.cu, vit_attention.cu): mbarriers, TMA tile loads, wgmma
 // descriptors and the two bf16 wgmma shapes they use, the two passes of
-// their row softmax, and the host-side encoding of a TMA tensor map.
+// their row softmax, and the host-side encoding of a TMA tensor map. The
+// row softmax (row_softmax.cu) uses the mbarriers and the 1-D bulk copies.
 //
 // Shared-memory tiles are rows of 64 bf16 (128 B) in the 128-byte swizzle
 // that TMA's CU_TENSOR_MAP_SWIZZLE_128B writes: the 16-byte chunk c of row r
@@ -99,6 +100,44 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// ---------------------------------------------------- 1-D bulk copies
+// Contiguous bytes without a tensor map: both addresses 16-byte aligned,
+// the size a multiple of 16.
+
+// global -> shared; completion is counted on the mbarrier as transaction
+// bytes (arm it with mbar_expect_tx first)
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// shared -> global, tracked by bulk groups (bulk_commit, bulk_wait*)
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// until at most N committed groups still read their shared source
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// until at most N committed groups are still incomplete
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ----------------------------------------------------------------- wgmma

@@ -81,13 +81,12 @@ def cross_attention(q, k, v, q_block=None):
         raise ValueError(f"cross_attention kernel takes head dim "
                          f"{KERNEL_HEAD_DIM}, got {d}")
     nk = k.shape[2]
-    lib = cuda_build.library()
     out = torch.empty_like(q)
     scratch = torch.empty((2, b * h * nk, d), dtype=torch.bfloat16, device=q.device)
-    with torch.cuda.device(q.device):
-        err = lib.facet_cross_attention(
+    with cuda_build.on_device(q.device):
+        err = cuda_build.library().facet_cross_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-            b * h, nq, nk, d, torch.cuda.current_stream().cuda_stream)
+            b * h, nq, nk, d, cuda_build.stream(q.device))
     cuda_build.check(err, "cross_attention")
     cross_attention.launches += 1
     return out

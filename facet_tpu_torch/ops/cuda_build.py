@@ -15,6 +15,7 @@ are encoded by libcuda's ``cuTensorMapEncodeTiled``, which
 ``cudaGetDriverEntryPointByVersion``, so the build needs CUDA 12.5 or later.
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -22,6 +23,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -38,6 +41,7 @@ _LP = ctypes.POINTER(ctypes.c_longlong)
 # C entry point -> argument types (pointers and the stream are c_void_p)
 SIGNATURES = {
     "facet_hs_entropy": [_P, _P, _P, _P, _I, _L, _I, _I, _L, _P],
+    "facet_hs_workspace": [_I, _I, _LP],
     "facet_cross_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "facet_gray_stats": [_P, _P, _P, _I, _I, _I, _I, _P],
     "facet_fused_stats": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _P],
@@ -98,7 +102,8 @@ def build():
 
 
 def library():
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call). ctypes looks each
+    entry point up once, on its first use, and keeps it on the library."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
@@ -108,6 +113,37 @@ def library():
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+# The wrappers' host path, per launch. A wrapper runs once per ViT layer or
+# per batch, so these keep to what a launch needs.
+_sm_counts = {}     # device index -> SM count, asked once
+
+
+def on_device(device):
+    """The context to launch on ``device`` in: none when it is already the
+    current device (the common case, and the cheap one), else
+    ``torch.cuda.device(device)``."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def stream(device):
+    """The raw cudaStream_t (an int) of the current stream on ``device``,
+    from torch's own C binding: ``torch.cuda.current_stream(device)`` builds
+    a Stream object inside a device context on every call, which cost more
+    than the rest of a launch (chip_smoke.py prints each wrapper's host
+    path)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def sm_count(device):
+    """The SM count of the card ``device``, asked once per process."""
+    if device.index not in _sm_counts:
+        _sm_counts[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sm_counts[device.index]
 
 
 def check(err, name):

@@ -17,6 +17,8 @@ On a CUDA tensor it launches the CUDA kernel in ``csrc/hs_entropy.cu``; on
 a CPU tensor it computes the plain twin ``hs_entropy_plain``.
 """
 
+import ctypes
+import functools
 import math
 
 import torch
@@ -26,7 +28,7 @@ from facet_tpu_torch.ops import cuda_build
 HUE_BINS = 180
 SAT_BINS = 256
 BINS = HUE_BINS * SAT_BINS
-# pixels per block below which more slices only add partial-histogram traffic
+# pixels per block below which more slices only add histogram traffic
 _MIN_SLICE_PIXELS = 16384
 
 
@@ -86,28 +88,43 @@ def slices_for(batch, n_eff, sm_count):
     return max(1, min(want, math.ceil(n_eff / _MIN_SLICE_PIXELS)))
 
 
+@functools.lru_cache(maxsize=None)
+def workspace_ints(batch, slices):
+    """int32s of the histogram kernels' workspace (csrc/hs_reduce.cuh): the
+    (batch, 46080) histograms first, then the reduce's shares and tickets
+    and the histogram blocks' in-range counts."""
+    ints = ctypes.c_longlong()
+    cuda_build.check(cuda_build.library().facet_hs_workspace(
+        batch, slices, ctypes.byref(ints)), "hs_workspace")
+    return ints.value
+
+
+def workspace(batch, slices, device):
+    """An uninitialized workspace for ``batch`` images of ``slices``
+    histogram blocks each (the kernels clear or write all of it they
+    read)."""
+    return torch.empty((workspace_ints(batch, slices),), dtype=torch.int32, device=device)
+
+
 def _launch(hue, sat, stride, n_valid):
-    """Launch the kernel -> ((B,) entropy, (B, slices, 46080) partials)."""
+    """Launch the kernel -> ((B,) entropy, (B, 46080) int32 histogram)."""
     b, n = hue.shape
     if b > 65535:
         raise ValueError(f"hs_entropy: batch {b} exceeds the grid limit 65535")
-    lib = cuda_build.library()
-    n_eff = -(-n // stride)
-    sm_count = torch.cuda.get_device_properties(hue.device).multi_processor_count
-    slices = slices_for(b, n_eff, sm_count)
-    partial = torch.empty((b, slices, BINS), dtype=torch.int32, device=hue.device)
-    out = torch.empty((b,), dtype=torch.float32, device=hue.device)
-    with torch.cuda.device(hue.device):
-        err = lib.facet_hs_entropy(
-            hue.data_ptr(), sat.data_ptr(), partial.data_ptr(), out.data_ptr(),
-            b, n, int(stride), slices, int(n_valid or 0),
-            torch.cuda.current_stream().cuda_stream)
+    dev = hue.device
+    slices = slices_for(b, -(-n // stride), cuda_build.sm_count(dev))
+    ws = workspace(b, slices, dev)
+    out = torch.empty((b,), dtype=torch.float32, device=dev)
+    with cuda_build.on_device(dev):
+        err = cuda_build.library().facet_hs_entropy(
+            hue.data_ptr(), sat.data_ptr(), ws.data_ptr(), out.data_ptr(),
+            b, n, int(stride), slices, int(n_valid or 0), cuda_build.stream(dev))
     cuda_build.check(err, "hs_entropy")
     if n_valid is None:
         hs_entropy.launches += 1               # kernel 1
     else:
         hs_entropy.launches_fixed += 1         # kernel 3
-    return out, partial
+    return out, ws[:b * BINS].view(b, BINS)
 
 
 def hs_entropy(hue, sat, stride=1, n_valid=None):
@@ -131,8 +148,8 @@ def hs_entropy_with_histogram(hue, sat, stride=1):
         return entropy_from_histogram(hist), hist
     if hue.device.type != "cuda":
         raise ValueError(f"hs_entropy: unsupported device {hue.device}")
-    out, partial = _launch(hue, sat, stride, None)
-    return out, partial.sum(dim=1, dtype=torch.int64)
+    out, hist = _launch(hue, sat, stride, None)
+    return out, hist.to(torch.int64)
 
 
 hs_entropy.launches = 0          # kernel 1 (in-range denominator)

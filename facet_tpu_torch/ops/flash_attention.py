@@ -73,12 +73,11 @@ def flash_attention(q, k, v, scale):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    lib = cuda_build.library()
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = lib.facet_vit_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                      out.data_ptr(), b, s, h, d, float(scale),
-                                      torch.cuda.current_stream().cuda_stream)
+    with cuda_build.on_device(q.device):
+        err = cuda_build.library().facet_vit_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, d,
+            float(scale), cuda_build.stream(q.device))
     cuda_build.check(err, "flash_attention")
     flash_attention.launches += 1
     return out

@@ -14,7 +14,7 @@ import torch
 
 from facet_tpu_torch.ops import cuda_build
 from facet_tpu_torch.ops.colorspace import rgb_to_gray, rgb_to_hsv
-from facet_tpu_torch.ops.entropy import BINS, hs_entropy_plain, slices_for
+from facet_tpu_torch.ops.entropy import hs_entropy_plain, slices_for, workspace
 from facet_tpu_torch.ops.gray_stats import gray_histogram_plain
 
 
@@ -57,21 +57,19 @@ def fused_stats(rgb):
     if b > 65535:
         raise ValueError(f"fused_stats: batch {b} exceeds the grid limit 65535")
     n = h * w
-    lib = cuda_build.library()
-    sm_count = torch.cuda.get_device_properties(rgb.device).multi_processor_count
-    slices = slices_for(b, n, sm_count)
     dev = rgb.device
-    hs_partial = torch.empty((b, slices, BINS), dtype=torch.int32, device=dev)
+    slices = slices_for(b, n, cuda_build.sm_count(dev))
+    hs_workspace = workspace(b, slices, dev)
     gray_partial = torch.empty((b, slices, 256), dtype=torch.int32, device=dev)
     sat_partial = torch.empty((b, slices), dtype=torch.int64, device=dev)
     entropy = torch.empty((b,), dtype=torch.float32, device=dev)
     gray_hist = torch.empty((b, 256), dtype=torch.int32, device=dev)
     sat = torch.empty((b, 2), dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.facet_fused_stats(
-            rgb.data_ptr(), hs_partial.data_ptr(), gray_partial.data_ptr(),
+    with cuda_build.on_device(dev):
+        err = cuda_build.library().facet_fused_stats(
+            rgb.data_ptr(), hs_workspace.data_ptr(), gray_partial.data_ptr(),
             sat_partial.data_ptr(), entropy.data_ptr(), gray_hist.data_ptr(),
-            sat.data_ptr(), b, n, slices, torch.cuda.current_stream().cuda_stream)
+            sat.data_ptr(), b, n, slices, cuda_build.stream(dev))
     cuda_build.check(err, "fused_stats")
     fused_stats.launches += 1
     return entropy, gray_hist, sat

@@ -81,14 +81,13 @@ def fused_gray_stats(gray):
     b, h, w = gray.shape
     if b > 65535:
         raise ValueError(f"fused_gray_stats: batch {b} exceeds the grid limit 65535")
-    lib = cuda_build.library()
-    sm_count = torch.cuda.get_device_properties(gray.device).multi_processor_count
-    hist = torch.zeros((b, 256), dtype=torch.int32, device=gray.device)
-    sums = torch.zeros((b, 3), dtype=torch.int64, device=gray.device)
-    with torch.cuda.device(gray.device):
-        err = lib.facet_gray_stats(
+    dev = gray.device
+    hist = torch.zeros((b, 256), dtype=torch.int32, device=dev)
+    sums = torch.zeros((b, 3), dtype=torch.int64, device=dev)
+    with cuda_build.on_device(dev):
+        err = cuda_build.library().facet_gray_stats(
             gray.data_ptr(), hist.data_ptr(), sums.data_ptr(), b, h, w,
-            blocks_for(b, h, w, sm_count), torch.cuda.current_stream().cuda_stream)
+            blocks_for(b, h, w, cuda_build.sm_count(dev)), cuda_build.stream(dev))
     cuda_build.check(err, "fused_gray_stats")
     fused_gray_stats.launches += 1
     return hist, sums[:, 0], sums[:, 1], sums[:, 2]

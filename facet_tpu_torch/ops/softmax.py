@@ -36,7 +36,10 @@ def softmax(scores):
     """(B, H, Q, K) scores -> row softmax over K, in the scores' dtype.
 
     The TPU kernel's ``head_block`` (heads per grid step) has no
-    counterpart: the CUDA kernel gives each row its own warp.
+    counterpart: the CUDA kernel walks groups of rows, a warp to a row.
+    It runs once per ViT layer; its host path is cuda_build's (the device
+    switched only when the scores lie on another card than the current one,
+    the raw stream from torch's C binding).
     """
     _check(scores)
     if scores.device.type == "cpu":
@@ -50,12 +53,11 @@ def softmax(scores):
     cols = scores.shape[-1]
     if cols > MAX_COLS:
         raise ValueError(f"the softmax kernel takes rows of up to {MAX_COLS}, got {cols}")
-    lib = cuda_build.library()
     out = torch.empty_like(scores)
-    with torch.cuda.device(scores.device):
-        err = lib.facet_row_softmax(scores.data_ptr(), out.data_ptr(),
-                                    scores.numel() // cols, cols,
-                                    torch.cuda.current_stream().cuda_stream)
+    with cuda_build.on_device(scores.device):
+        err = cuda_build.library().facet_row_softmax(
+            scores.data_ptr(), out.data_ptr(), scores.numel() // cols, cols,
+            cuda_build.stream(scores.device))
     cuda_build.check(err, "softmax")
     softmax.launches += 1
     return out

@@ -55,11 +55,23 @@ def _oracle_entropy(hh, ss):
     return np.array(out)
 
 
-@pytest.mark.parametrize("case", ["forced_padding", "markers", "stride4"])
+def _edge_hs(case):
+    """Kernel 1's edge inputs: every pixel in one bin (entropy 0), and
+    planes of 37 x 53 pixels, an odd length that no slice or vector width
+    divides."""
+    if case == "one_bin":
+        return np.full((2, 4096), 17, np.int32), np.full((2, 4096), 201, np.int32)
+    return _rand_hs(3, 37 * 53, 9)
+
+
+@pytest.mark.parametrize("case", ["forced_padding", "markers", "stride4", "one_bin",
+                                  "odd_length"])
 def test_entropy_twin_matches_pallas_ilp(case):
     from facet_tpu.ops.pallas_entropy import hs_entropy_pallas_ilp
 
-    if case == "markers":
+    if case in ("one_bin", "odd_length"):
+        hh, ss = _edge_hs(case)
+    elif case == "markers":
         # -1 hue markers vanish from the histogram and the denominator
         h0, s0 = _rand_hs(1, 3000, 3)
         hh = np.full((1, 4096), -1, np.int32)
@@ -257,10 +269,13 @@ def _rel_rms(got, want):
     return float(np.sqrt(np.mean(diff ** 2) / np.mean(np.asarray(want, np.float64) ** 2)))
 
 
-@pytest.mark.parametrize("shape", [(2, 16, 257, 257), (1, 3, 64, 128)])
+@pytest.mark.parametrize("shape", [(2, 16, 257, 257), (1, 3, 64, 128), (1, 3, 37, 53),
+                                   (1, 2, 8, 1024), (1, 2, 8, 1)])
 def test_softmax_twin_matches_pallas(shape):
     """Scores at the ViT's scale, x4 as tests/test_pallas_softmax.py makes
-    them; (1, 3, 64, 128) has heads the TPU's head_block does not divide."""
+    them; (1, 3, 64, 128) has heads the TPU's head_block does not divide;
+    the CUDA kernel's edge paths: 111 rows of an odd width (fewer than one
+    group of rows), rows of 1024 (the widest it takes) and of 1."""
     from facet_tpu.ops.pallas_softmax import softmax_pallas
 
     s = _bf16(shape, sum(shape), 4.0)
@@ -368,6 +383,26 @@ def test_entropy_kernel_matches_twin(cuda, stride):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_bin", "odd_length"])
+def test_entropy_kernel_edge_cases(cuda, case):
+    hh, ss = _edge_hs(case)
+    hue, sat = torch.from_numpy(hh).to(cuda), torch.from_numpy(ss).to(cuda)
+    got, hist = entropy.hs_entropy_with_histogram(hue, sat)
+    assert torch.equal(hist, entropy.hs_histogram_plain(hue, sat))
+    assert float((got - entropy.hs_entropy_plain(hue, sat)).abs().max()) <= 1e-5
+    if case == "one_bin":
+        assert torch.equal(got, torch.zeros_like(got))
+
+
+@pytest.mark.cuda
+def test_entropy_kernel_is_reproducible(cuda):
+    """The reduce sums in a fixed order: two calls give the same bits."""
+    hh, ss = _rand_hs(4, 300_001, 10)
+    hue, sat = torch.from_numpy(hh).to(cuda), torch.from_numpy(ss).to(cuda)
+    assert torch.equal(entropy.hs_entropy(hue, sat), entropy.hs_entropy(hue, sat))
+
+
+@pytest.mark.cuda
 def test_entropy_fixed_denominator_kernel_matches_twin(cuda):
     hh, ss = _rand_hs(3, 100_003, 8)
     hh[:, -1000:] = -1
@@ -417,9 +452,18 @@ def test_attention_kernel_matches_twin(cuda, nq, nk):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 16, 257, 257), (3, 3, 37, 53)])
+@pytest.mark.parametrize("shape", [(2, 16, 257, 257), (3, 3, 37, 53), (1, 3, 37, 53),
+                                   (1, 2, 8, 1024), (1, 2, 8, 1), "offset"])
 def test_softmax_kernel_matches_twin(cuda, shape):
+    """The ViT's width, whole groups of rows with a ragged last one, fewer
+    rows than a group, the widest and the narrowest rows, and ("offset")
+    a base 2 bytes off a 16-byte boundary, which takes the row-by-row
+    path."""
+    offset = shape == "offset"
+    shape = (2, 16, 257, 257) if offset else shape
     s = torch.from_numpy(_bf16(shape, 12, 4.0)).to(cuda).to(torch.bfloat16)
+    if offset:
+        s = torch.cat([s.new_zeros(1), s.reshape(-1)])[1:].view(shape)
     got, want = softmax.softmax(s), softmax.softmax_plain(s)
     _, ok = _within_one_ulp(got.float().cpu().numpy(), want.float().cpu().numpy())
     assert ok
