@@ -26,17 +26,22 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    torch.softmax for kernel 6: yardsticks only, the port never calls
    them). At the main path's shape each also reports its device time per
    call replayed from a CUDA graph (no host launch cost), and so do SDPA
-   and torch.softmax beside kernels 2, 7 and 6; kernels 1
-   and 4 split their device time by launch (torch.profiler), and kernel 1
-   must return bit-identical entropy on three calls. Kernels 2 and 7 report
-   resident blocks per SM and the bytes staged into shared memory (for
-   kernel 2 also through L2), reckoned from the grid; then the whole
-   statistics prepass is timed in both
-   configurations, and the ViT-L/14 forward under each attention schedule;
+   and torch.softmax beside kernels 2, 7 and 6; kernels 1, 4
+   and 5 split their device time by launch (torch.profiler), and kernel 1
+   must return bit-identical entropy on three calls. Kernels 1, 4 and 5
+   (both entries: from the uint8 RGB, the main path's, and from an int32
+   gray plane) are also held to their twins on one 24 MP photo (4000x6000)
+   near-uniform and one noisy, past 2^24 pixels of one image. Kernels 2
+   and 7 report resident blocks per SM and the bytes staged into shared
+   memory (for kernel 2 also through L2), reckoned from the grid; then the
+   whole statistics prepass is timed in both configurations (events, a
+   CUDA graph, and its device time by launch), and the ViT-L/14 forward
+   under each attention schedule;
 4. the slice: ``python -m facet_tpu_torch <dir> --pass quality`` in-process
    over synthetic photos at full width (ViT-L/14 at 224 in bf16 with the
    aesthetic head, TOPIQ at 384 in f32), each scan into a fresh database:
-   the default configuration (kernels 1, 5 and 2 launch), then
+   the default configuration (kernels 1, 5 from the RGB, and 2 launch;
+   kernel 5 never from a gray plane), then
    FACET_ENTROPY_IMPL=pallas_fused (kernels 4, 5 and 2), then the ViT's
    other attention schedules FACET_ATTN_IMPL=psoftmax (kernel 6) and
    FACET_ATTN_IMPL=flash (kernel 7). Each scan's launch counts are checked
@@ -56,8 +61,9 @@ is {"ok": true, "device": {...}}.
 With ``--ab OTHER_TREE [CHECK ...]`` it runs only the kernel checks
 (``softmax`` for kernel 6, ``entropy`` for kernel 1, ``entropy_fixed``
 for kernel 3, ``fused_stats`` for kernel 4, ``gray_stats`` for kernel 5,
-``attention`` for kernel 2, ``vit_attention`` for kernel 7; all seven when
-none is named) on the kernels of another checkout of the repo
+``attention`` for kernel 2, ``vit_attention`` for kernel 7, ``prepass``
+for the whole statistics prepass; all when none is named) on the kernels
+of another checkout of the repo
 and of this one in turns on one card (other, this, this, other), each tree
 in a process of its own that builds that tree's kernels; the checks and
 timers are this file's, so both trees are measured alike. For a parent
@@ -126,9 +132,11 @@ MUFU_EXP_PER_S = 16 * 132 * 1.98e9
 # 32-bit ALU operations per pixel of each statistics kernel's arithmetic
 # (their histograms and sums, not the address math): kernel 1 bins and
 # checks a (hue, sat) pair; kernel 5 evaluates two 3x3 stencils, a square,
-# an absolute value and three sums; kernel 4 computes gray, V, min, diff, S,
+# an absolute value and three sums, and from RGB also the gray (three
+# multiply-adds, a rounding add and a shift); kernel 4 computes gray, V, min, diff, S,
 # H with its branch and fix-up, two bins and a sum
-OPS_PER_PIXEL = {"hs_entropy": 4, "gray_stats": 26, "fused_stats": 40}
+OPS_PER_PIXEL = {"hs_entropy": 4, "gray_stats": 26, "gray_stats_rgb": 32,
+                 "fused_stats": 40}
 # kernel 6, per score: a max, a subtraction, an exp, a sum and a division
 SOFTMAX_OPS_PER_ELEMENT = 5
 
@@ -285,12 +293,35 @@ def stats_batch(b, h, w, seed):
     return torch.from_numpy(np.stack(synthetic_photos(b, h, w, seed, True))).cuda()
 
 
+# one camera photo above 16 MP (24 MP): every stats kernel counts past 2^24
+# pixels of one image there, where an f32 counter stops counting
+BIG_PHOTO = (4000, 6000)
+BIG_KINDS = ("near-uniform", "noisy")
+
+
+def big_photo(kind, seed=24):
+    """(1, 4000, 6000, 3) uint8 on the card. "near-uniform": one colour,
+    with every 997th pixel drawn at random (one gray bin holds nearly all
+    24 M pixels); "noisy": every channel drawn uniformly."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (1, *BIG_PHOTO, 3)
+    noise = torch.randint(0, 256, shape, generator=g, device="cuda", dtype=torch.uint8)
+    if kind == "noisy":
+        return noise
+    rgb = torch.tensor([90, 140, 200], dtype=torch.uint8, device="cuda").expand(shape)
+    rgb = rgb.contiguous()
+    flat, flat_noise = rgb.view(-1, 3), noise.view(-1, 3)
+    flat[::997] = flat_noise[::997]
+    return rgb
+
+
 def check_entropy(gpu):
     """Kernel 1 vs its twin: the scan's own batches (the reported time is
     the first), the fast tier's stride 4, an odd h*w, an image whose
     pixels all fall into one bin, and the scan's batch with hue and
     saturation drawn uniformly, every bin filled (timed in a CUDA graph
-    too: the most histogram traffic); exact histograms. At the first shape two
+    too: the most histogram traffic), and one 24 MP photo near-uniform and
+    one noisy (BIG_KINDS); exact histograms. At the first shape two
     more calls must return bit-identical entropy, and the kernel is also
     timed in a CUDA graph, with its device time split by launch (profiler).
     Its bound: the int32 hue and saturation it reads, 8 B per counted
@@ -300,6 +331,7 @@ def check_entropy(gpu):
     cases += [(16, 1024, 1536, 1), (16, 1024, 1536, 4), (3, 37, 53, 1),
               (3, 37, 53, 4), ("one bin", 2, 37, 53, 1),
               ("uniform", SCAN_COUNTS[0], *SCAN_SHAPES[0], 1)]
+    cases += [(kind, 1, *BIG_PHOTO, 1) for kind in BIG_KINDS]
     for case in cases:
         kind = case[0] if isinstance(case[0], str) else ""
         b, h, w, stride = case[1:] if kind else case
@@ -313,8 +345,11 @@ def check_entropy(gpu):
             sat = torch.randint(0, 256, (b, h * w), generator=g, device="cuda",
                                 dtype=torch.int32)
         else:
-            imgs = np.stack(synthetic_photos(b, h, w, seed=h + stride))
-            rgb = torch.from_numpy(imgs).cuda()
+            if kind in BIG_KINDS:
+                rgb = big_photo(kind)
+            else:
+                rgb = torch.from_numpy(
+                    np.stack(synthetic_photos(b, h, w, seed=h + stride))).cuda()
             hh, ss, _ = rgb_to_hsv(rgb)
             hue = hh.reshape(b, -1).contiguous()
             sat = ss.reshape(b, -1).contiguous()
@@ -403,13 +438,18 @@ def check_entropy_fixed(gpu):
 
 def check_fused_stats(gpu):
     """Kernel 4 vs its twin at the scan's batches and at (3, 37, 53), where
-    h*w is odd and not a multiple of 4: identical gray histograms and
-    saturation pairs, entropy within ENTROPY_TOL. Its bound: the uint8 RGB
-    read once, and the outputs."""
+    h*w is odd and not a multiple of 4, and at one 24 MP photo near-uniform
+    and one noisy (BIG_KINDS): identical gray histograms and saturation
+    pairs, entropy within ENTROPY_TOL. Its bound: the uint8 RGB read once,
+    and the outputs. At the first shape it is also timed in a CUDA graph
+    on hue and saturation that fill every bin (uniformly drawn RGB)."""
     report = {"max_abs_err": 0.0}
     cases = [(n, h, w) for (h, w), n in zip(SCAN_SHAPES, SCAN_COUNTS)] + [(3, 37, 53)]
-    for b, h, w in cases:
-        rgb = stats_batch(b, h, w, seed=h + 4)
+    cases += [(kind, 1, *BIG_PHOTO) for kind in BIG_KINDS]
+    for case in cases:
+        kind = case[0] if isinstance(case[0], str) else ""
+        b, h, w = case[1:] if kind else case
+        rgb = big_photo(kind) if kind else stats_batch(b, h, w, seed=h + 4)
         got = fused_stats.fused_stats(rgb)
         want = fused_stats.fused_stats_plain(rgb)
         torch.cuda.synchronize()
@@ -429,10 +469,17 @@ def check_fused_stats(gpu):
         if "ms" not in report:
             report["graph_ms"] = graph_ms(lambda: fused_stats.fused_stats(rgb))
             split = device_split(lambda: fused_stats.fused_stats(rgb))
+            g = torch.Generator(device="cuda").manual_seed(4)
+            noisy = torch.randint(0, 256, rgb.shape, generator=g, device="cuda",
+                                  dtype=torch.uint8)
+            noisy_ms = graph_ms(lambda: fused_stats.fused_stats(noisy))
+            del noisy
             extra = (f"; in a CUDA graph {report['graph_ms']:.4f} ms "
-                     f"({bound_ms / report['graph_ms']:.0%} of its bound); device "
+                     f"({bound_ms / report['graph_ms']:.0%} of its bound), on "
+                     f"uniformly drawn RGB {noisy_ms:.4f} ms; device "
                      f"time by launch: {split_line(split)}")
-        phase("kernels", f"fused_stats B={b} {h}x{w}: histogram and saturation "
+        phase("kernels", f"fused_stats {kind + ' ' if kind else ''}B={b} {h}x{w}: "
+                         f"histogram and saturation "
                          f"exact, max|d entropy|={err:.3g}, kernel {ms:.4f} ms, "
                          f"twin {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
                          f"({bound_by}){extra} ({gpu})")
@@ -443,31 +490,71 @@ def check_fused_stats(gpu):
 
 
 def check_gray_stats(gpu):
-    """Kernel 5 vs its twin at the scan's batches and at (2, 3, 3), the
-    smallest image the engine takes, and (3, 37, 53): every output
-    identical. Its bound: the int32 gray plane read once, and the outputs."""
+    """Kernel 5 vs its twin, through both entries: fused_gray_stats_rgb(rgb)
+    (the main path's, from the uint8 RGB) and fused_gray_stats(gray) (an
+    int32 gray plane), at the scan's batches, at (2, 3, 3), the smallest
+    image the engine takes, (3, 37, 53), and one 24 MP photo near-uniform
+    and one noisy (BIG_KINDS): every output identical to
+    fused_gray_stats_plain(rgb_to_gray(rgb)). The reported time is the main
+    path's call in the tree under test: fused_gray_stats_rgb(rgb) where the
+    tree has it, else fused_gray_stats(rgb_to_gray(rgb)), so that --ab holds
+    two trees to the same work. Its bound: the uint8 RGB read once, and the
+    outputs. At the first shape it also reports the main path's call in a
+    CUDA graph with its device time by launch, the gray entry alone, and
+    rgb_to_gray alone (events and graph)."""
+    rgb_entry = getattr(gray_stats, "fused_gray_stats_rgb", None)
+
+    def main_call(rgb):
+        if rgb_entry is not None:
+            return rgb_entry(rgb)
+        return gray_stats.fused_gray_stats(rgb_to_gray(rgb))
+
     report = {"max_abs_err": 0}
     cases = [(n, h, w) for (h, w), n in zip(SCAN_SHAPES, SCAN_COUNTS)]
     cases += [(2, 3, 3), (3, 37, 53)]
-    for b, h, w in cases:
-        gray = rgb_to_gray(stats_batch(b, h, w, seed=h + 5)).contiguous()
-        got = gray_stats.fused_gray_stats(gray)
+    cases += [(kind, 1, *BIG_PHOTO) for kind in BIG_KINDS]
+    for case in cases:
+        kind = case[0] if isinstance(case[0], str) else ""
+        b, h, w = case[1:] if kind else case
+        rgb = big_photo(kind) if kind else stats_batch(b, h, w, seed=h + 5)
+        gray = rgb_to_gray(rgb).contiguous()
         want = gray_stats.fused_gray_stats_plain(gray)
+        entries = {"gray": gray_stats.fused_gray_stats(gray)}
+        if rgb_entry is not None:
+            entries["rgb"] = rgb_entry(rgb)
         torch.cuda.synchronize()
-        for name, g, x in zip(("hist", "lap_sum", "lap_sumsq", "imm_abs"), got, want):
-            if not torch.equal(g, x):
-                raise AssertionError(f"gray_stats {name} differs at {(b, h, w)}")
-        ms = cuda_median_ms(lambda: gray_stats.fused_gray_stats(gray))
-        plain_ms = cuda_median_ms(lambda: gray_stats.fused_gray_stats_plain(gray))
-        bound_ms, bound_by = bound(b * h * w * 4 + b * (256 * 4 + 3 * 8),
-                                   b * h * w * OPS_PER_PIXEL["gray_stats"], FP32_OPS)
+        for entry, got in entries.items():
+            for name, g, x in zip(("hist", "lap_sum", "lap_sumsq", "imm_abs"), got, want):
+                if not torch.equal(g, x):
+                    raise AssertionError(f"gray_stats ({entry} entry) {name} differs "
+                                         f"at {kind or (b, h, w)}")
+        ms = cuda_median_ms(lambda: main_call(rgb))
+        plain_ms = cuda_median_ms(
+            lambda: gray_stats.fused_gray_stats_plain(rgb_to_gray(rgb)))
+        outputs = b * (256 * 4 + 3 * 8)
+        bound_ms, bound_by = bound(b * h * w * 3 + outputs,
+                                   b * h * w * OPS_PER_PIXEL["gray_stats_rgb"], FP32_OPS)
         extra = ""
         if "ms" not in report:
-            report["graph_ms"] = graph_ms(lambda: gray_stats.fused_gray_stats(gray))
+            report["graph_ms"] = graph_ms(lambda: main_call(rgb))
+            split = device_split(lambda: main_call(rgb))
+            gray_graph = graph_ms(lambda: gray_stats.fused_gray_stats(gray))
+            gray_split = device_split(lambda: gray_stats.fused_gray_stats(gray))
+            gray_bound, _ = bound(b * h * w * 4 + outputs,
+                                  b * h * w * OPS_PER_PIXEL["gray_stats"], FP32_OPS)
+            conv_ms = cuda_median_ms(lambda: rgb_to_gray(rgb))
+            conv_graph = graph_ms(lambda: rgb_to_gray(rgb))
+            conv_bound, _ = bound(b * h * w * (3 + 4), 0, FP32_OPS)
             extra = (f"; in a CUDA graph {report['graph_ms']:.4f} ms "
-                     f"({bound_ms / report['graph_ms']:.0%} of its bound)")
-        phase("kernels", f"gray_stats B={b} {h}x{w}: every output exact, kernel "
-                         f"{ms:.4f} ms, twin {plain_ms:.3f} ms, bound "
+                     f"({bound_ms / report['graph_ms']:.0%} of its bound), device time "
+                     f"by launch: {split_line(split)}; the gray entry alone: in a CUDA "
+                     f"graph {gray_graph:.4f} ms (bound {gray_bound:.4f} ms), by launch "
+                     f"{split_line(gray_split)}; rgb_to_gray alone: {conv_ms:.4f} ms, in "
+                     f"a CUDA graph {conv_graph:.4f} ms (bound {conv_bound:.4f} ms)")
+        phase("kernels", f"gray_stats {kind + ' ' if kind else ''}B={b} {h}x{w}: every "
+                         f"output of {' and '.join(entries)} entries exact, main path call "
+                         f"{'fused_gray_stats_rgb' if rgb_entry else 'fused_gray_stats(rgb_to_gray)'}"
+                         f" {ms:.4f} ms, twin {plain_ms:.3f} ms, bound "
                          f"{bound_ms:.4f} ms ({bound_by}){extra} ({gpu})")
         if "ms" not in report:
             report.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -725,16 +812,30 @@ def check_vit_attention(gpu):
     return report
 
 
-def time_prepass(gpu):
+def check_prepass(gpu):
     """The whole statistics prepass (ops/stats.py:batch_stats) in both
     configurations at the scan's batches, as the fused pass calls it: the
-    layer the stats kernels serve, kernels and plain ops together."""
-    for (h, w), b in zip(SCAN_SHAPES, SCAN_COUNTS):
+    layer the stats kernels serve, kernels and plain ops together. CUDA
+    events at every shape; at the first also a CUDA graph and the device
+    time by launch (the profiler's ten largest), which names the ops that
+    take the prepass's time. Not a kernel: it adds nothing to the report."""
+    for first, ((h, w), b) in zip((True, False), zip(SCAN_SHAPES, SCAN_COUNTS)):
         rgb = stats_batch(b, h, w, seed=h + 6)
-        times = {impl: cuda_median_ms(lambda: batch_stats(rgb, 1, impl))
-                 for impl in ENTROPY_IMPLS}
-        phase("kernels", f"stats prepass B={b} {h}x{w}: " + ", ".join(
-            f"{impl} {ms:.3f} ms" for impl, ms in times.items()) + f" ({gpu})")
+        for impl in ENTROPY_IMPLS:
+            def call(impl=impl):
+                return batch_stats(rgb, 1, impl)
+
+            ms = cuda_median_ms(call)
+            extra = ""
+            if first:
+                split = device_split(call)
+                top = dict(sorted(split.items(), key=lambda kv: -kv[1])[:10])
+                extra = (f"; in a CUDA graph {graph_ms(call):.4f} ms; device time by "
+                         f"launch, {sum(split.values()):.4f} ms in {len(split)} "
+                         f"kernels, the largest: {split_line(top)}")
+            phase("prepass", f"stats prepass {impl} B={b} {h}x{w}: {ms:.3f} ms"
+                             f"{extra} ({gpu})")
+    return {}
 
 
 def time_vit(gpu):
@@ -780,7 +881,7 @@ def phase_kernels(gpu):
               "cross_attention": check_attention(gpu),
               "softmax": check_softmax(gpu),
               "flash_attention": check_vit_attention(gpu)}
-    time_prepass(gpu)
+    check_prepass(gpu)
     time_vit(gpu)
     torch.cuda.empty_cache()       # the rider sizes its slices from free memory
     return report
@@ -798,11 +899,16 @@ def write_photos(directory):
     return paths
 
 
-# every launch counter the scans read: name -> (wrapper, attribute)
+# every launch counter the scans read: name -> (wrapper, attribute); kernel
+# 5 launches from the RGB on the main path ("gray_stats"), never from a gray
+# plane ("gray_stats_plane"). (--ab imports this file in trees from before
+# the RGB entry, which never scan.)
 COUNTERS = {"hs_entropy": (entropy.hs_entropy, "launches"),
             "hs_entropy_fixed": (entropy.hs_entropy, "launches_fixed"),
             "fused_stats": (fused_stats.fused_stats, "launches"),
-            "gray_stats": (gray_stats.fused_gray_stats, "launches"),
+            "gray_stats": (getattr(gray_stats, "fused_gray_stats_rgb",
+                                   gray_stats.fused_gray_stats), "launches"),
+            "gray_stats_plane": (gray_stats.fused_gray_stats, "launches"),
             "cross_attention": (attention.cross_attention, "launches"),
             "softmax": (softmax.softmax, "launches"),
             "flash_attention": (flash_attention.flash_attention, "launches")}
@@ -813,16 +919,16 @@ _VIT_ATTENTION = {"softmax", "flash_attention"}
 SCANS = {
     "pallas": ({"FACET_ENTROPY_IMPL": "pallas"},
                {"hs_entropy", "gray_stats", "cross_attention"},
-               {"fused_stats"} | _VIT_ATTENTION),
+               {"fused_stats", "gray_stats_plane"} | _VIT_ATTENTION),
     "pallas_fused": ({"FACET_ENTROPY_IMPL": "pallas_fused"},
                      {"fused_stats", "gray_stats", "cross_attention"},
-                     {"hs_entropy"} | _VIT_ATTENTION),
+                     {"hs_entropy", "gray_stats_plane"} | _VIT_ATTENTION),
     "psoftmax": ({"FACET_ENTROPY_IMPL": "pallas", "FACET_ATTN_IMPL": "psoftmax"},
                  {"hs_entropy", "gray_stats", "cross_attention", "softmax"},
-                 {"fused_stats", "flash_attention"}),
+                 {"fused_stats", "gray_stats_plane", "flash_attention"}),
     "flash": ({"FACET_ENTROPY_IMPL": "pallas", "FACET_ATTN_IMPL": "flash"},
               {"hs_entropy", "gray_stats", "cross_attention", "flash_attention"},
-              {"fused_stats", "softmax"}),
+              {"fused_stats", "gray_stats_plane", "softmax"}),
 }
 ROW_COLUMNS = ("path", "aesthetic", "topiq_score", "quality_score", "phash",
                "raw_color_entropy", "color_score", "aggregate", "scoring_model",
@@ -1005,7 +1111,7 @@ KERNELS = {
 
 # the checks that --ab runs, by name
 AB_CHECKS = ("softmax", "entropy", "entropy_fixed", "fused_stats", "gray_stats",
-             "attention", "vit_attention")
+             "attention", "vit_attention", "prepass")
 
 
 def ab_kernels(other, names=AB_CHECKS):

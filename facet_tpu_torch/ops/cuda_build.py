@@ -43,8 +43,9 @@ SIGNATURES = {
     "facet_hs_entropy": [_P, _P, _P, _P, _I, _L, _I, _I, _L, _P],
     "facet_hs_workspace": [_I, _I, _LP],
     "facet_cross_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "facet_gray_stats": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "facet_fused_stats": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _P],
+    "facet_gray_stats": [_P, _I, _P, _P, _I, _I, _I, _I, _P],
+    "facet_fused_stats": [_P, _P, _P, _P, _P, _I, _L, _I, _P],
+    "facet_fused_stats_scratch": [_I, _LP],
     "facet_row_softmax": [_P, _P, _L, _I, _P],
     "facet_vit_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "facet_cross_attention_geometry": [_I, _I, _I, _IP, _IP, _LP, _LP],

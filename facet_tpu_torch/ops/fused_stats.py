@@ -10,11 +10,14 @@ launches the kernel in ``csrc/fused_stats.cu``; on a CPU tensor it computes
 the plain twin ``fused_stats_plain``.
 """
 
+import ctypes
+import functools
+
 import torch
 
 from facet_tpu_torch.ops import cuda_build
 from facet_tpu_torch.ops.colorspace import rgb_to_gray, rgb_to_hsv
-from facet_tpu_torch.ops.entropy import hs_entropy_plain, slices_for, workspace
+from facet_tpu_torch.ops.entropy import hs_entropy_plain
 from facet_tpu_torch.ops.gray_stats import gray_histogram_plain
 
 
@@ -45,6 +48,17 @@ def fused_stats_plain(rgb):
     return entropy, gray_histogram_plain(rgb_to_gray(rgb)), split_pair(sat, 12)
 
 
+@functools.lru_cache(maxsize=None)
+def scratch_ints(batch):
+    """int32s of the kernel's scratch (csrc/fused_stats.cu): kernel 1's
+    workspace for one slice an image, the gray histograms and the
+    saturation totals; the kernel clears it."""
+    ints = ctypes.c_longlong()
+    cuda_build.check(cuda_build.library().facet_fused_stats_scratch(
+        batch, ctypes.byref(ints)), "fused_stats_scratch")
+    return ints.value
+
+
 def fused_stats(rgb):
     """(B, H, W, 3) uint8 -> (entropy (B,) f32, gray_hist (B, 256) int32,
     sat pair (B, 2) int64), on the tensor's device."""
@@ -56,20 +70,15 @@ def fused_stats(rgb):
     b, h, w, _ = rgb.shape
     if b > 65535:
         raise ValueError(f"fused_stats: batch {b} exceeds the grid limit 65535")
-    n = h * w
     dev = rgb.device
-    slices = slices_for(b, n, cuda_build.sm_count(dev))
-    hs_workspace = workspace(b, slices, dev)
-    gray_partial = torch.empty((b, slices, 256), dtype=torch.int32, device=dev)
-    sat_partial = torch.empty((b, slices), dtype=torch.int64, device=dev)
+    scratch = torch.empty((scratch_ints(b),), dtype=torch.int32, device=dev)
     entropy = torch.empty((b,), dtype=torch.float32, device=dev)
     gray_hist = torch.empty((b, 256), dtype=torch.int32, device=dev)
     sat = torch.empty((b, 2), dtype=torch.int64, device=dev)
     with cuda_build.on_device(dev):
         err = cuda_build.library().facet_fused_stats(
-            rgb.data_ptr(), hs_workspace.data_ptr(), gray_partial.data_ptr(),
-            sat_partial.data_ptr(), entropy.data_ptr(), gray_hist.data_ptr(),
-            sat.data_ptr(), b, n, slices, cuda_build.stream(dev))
+            rgb.data_ptr(), scratch.data_ptr(), entropy.data_ptr(), gray_hist.data_ptr(),
+            sat.data_ptr(), b, h * w, cuda_build.sm_count(dev), cuda_build.stream(dev))
     cuda_build.check(err, "fused_stats")
     fused_stats.launches += 1
     return entropy, gray_hist, sat

@@ -5,20 +5,23 @@
 exact-cv2 gray plane it returns the 256-bin histogram (B, 256) int32 and,
 over cv2's reflect-101 border, the Laplacian sum, the Laplacian sum of
 squares and the |Immerkaer| sum, each (B,) int64. The JAX function returns
-numpy; these stay on the device until the fused pass fetches them. On a
-CUDA tensor it launches the kernel in ``csrc/gray_stats.cu``; on a CPU
-tensor it computes the plain twin ``fused_gray_stats_plain``.
-"""
+numpy; these stay on the device until the fused pass fetches them.
 
-import math
+``fused_gray_stats_rgb(rgb)``, the stats prepass's entry, takes the
+(B, H, W, 3) uint8 RGB instead and returns the same outputs for its
+exact-cv2 gray plane, which the kernel computes from the pixels itself, so
+no gray plane is written; its twin is ``fused_gray_stats_rgb_plain``
+(``rgb_to_gray``, then ``fused_gray_stats_plain``).
+
+On a CUDA tensor both launch the kernel in ``csrc/gray_stats.cu`` (one
+template: RGB or int32 loads); on a CPU tensor they compute their plain
+twins.
+"""
 
 import torch
 
 from facet_tpu_torch.ops import cuda_build
-
-# blocks per SM the launch aims for (256 threads each, 8 fit one SM)
-_BLOCKS_PER_SM = 8
-_TILE_H, _TILE_W = 16, 128      # csrc/gray_stats.cu's kTileH, kTileW
+from facet_tpu_torch.ops.colorspace import rgb_to_gray
 
 
 def _check(gray):
@@ -31,6 +34,18 @@ def _check(gray):
     b, h, w = gray.shape
     if b < 1 or h < 2 or w < 2:
         raise ValueError(f"reflect-101 stencils need H, W >= 2, got {tuple(gray.shape)}")
+
+
+def _check_rgb(rgb):
+    if rgb.dim() != 4 or rgb.shape[3] != 3:
+        raise ValueError(f"rgb must be (B, H, W, 3), got {tuple(rgb.shape)}")
+    if rgb.dtype != torch.uint8:
+        raise TypeError(f"rgb must be uint8, got {rgb.dtype}")
+    if not rgb.is_contiguous():
+        raise ValueError("rgb must be contiguous")
+    b, h, w, _ = rgb.shape
+    if b < 1 or h < 2 or w < 2:
+        raise ValueError(f"reflect-101 stencils need H, W >= 2, got {tuple(rgb.shape)}")
 
 
 def gray_histogram_plain(gray):
@@ -63,11 +78,20 @@ def fused_gray_stats_plain(gray):
             imm.abs().sum(dim=(1, 2), dtype=torch.int64))
 
 
-def blocks_for(batch, h, w, sm_count):
-    """Blocks per image: about _BLOCKS_PER_SM per SM over the batch, at most
-    one per tile."""
-    tiles = math.ceil(h / _TILE_H) * math.ceil(w / _TILE_W)
-    return max(1, min(tiles, math.ceil(_BLOCKS_PER_SM * sm_count / batch)))
+def _launch(src, bpp, b, h, w):
+    """Kernel 5 on ``src`` (bpp 3: uint8 RGB; 4: int32 gray) -> the four
+    outputs, on the tensor's device."""
+    if b > 0x7fffffff // 256:
+        raise ValueError(f"fused_gray_stats: batch {b} is too large")
+    dev = src.device
+    hist = torch.zeros((b, 256), dtype=torch.int32, device=dev)
+    sums = torch.zeros((b, 3), dtype=torch.int64, device=dev)
+    with cuda_build.on_device(dev):
+        err = cuda_build.library().facet_gray_stats(
+            src.data_ptr(), bpp, hist.data_ptr(), sums.data_ptr(), b, h, w,
+            cuda_build.sm_count(dev), cuda_build.stream(dev))
+    cuda_build.check(err, "fused_gray_stats")
+    return hist, sums[:, 0], sums[:, 1], sums[:, 2]
 
 
 def fused_gray_stats(gray):
@@ -78,19 +102,31 @@ def fused_gray_stats(gray):
         return fused_gray_stats_plain(gray)
     if gray.device.type != "cuda":
         raise ValueError(f"fused_gray_stats: unsupported device {gray.device}")
-    b, h, w = gray.shape
-    if b > 65535:
-        raise ValueError(f"fused_gray_stats: batch {b} exceeds the grid limit 65535")
-    dev = gray.device
-    hist = torch.zeros((b, 256), dtype=torch.int32, device=dev)
-    sums = torch.zeros((b, 3), dtype=torch.int64, device=dev)
-    with cuda_build.on_device(dev):
-        err = cuda_build.library().facet_gray_stats(
-            gray.data_ptr(), hist.data_ptr(), sums.data_ptr(), b, h, w,
-            blocks_for(b, h, w, cuda_build.sm_count(dev)), cuda_build.stream(dev))
-    cuda_build.check(err, "fused_gray_stats")
+    out = _launch(gray, 4, *gray.shape)
     fused_gray_stats.launches += 1
-    return hist, sums[:, 0], sums[:, 1], sums[:, 2]
+    return out
+
+
+def fused_gray_stats_rgb_plain(rgb):
+    """Plain twin of ``fused_gray_stats_rgb``: rgb_to_gray, then
+    ``fused_gray_stats_plain``."""
+    _check_rgb(rgb)
+    return fused_gray_stats_plain(rgb_to_gray(rgb))
+
+
+def fused_gray_stats_rgb(rgb):
+    """(B, H, W, 3) uint8 RGB -> the outputs of ``fused_gray_stats`` on its
+    exact-cv2 gray plane, which the kernel makes itself (no gray plane is
+    written), on the tensor's device."""
+    _check_rgb(rgb)
+    if rgb.device.type == "cpu":
+        return fused_gray_stats_rgb_plain(rgb)
+    if rgb.device.type != "cuda":
+        raise ValueError(f"fused_gray_stats_rgb: unsupported device {rgb.device}")
+    out = _launch(rgb, 3, *rgb.shape[:3])
+    fused_gray_stats_rgb.launches += 1
+    return out
 
 
 fused_gray_stats.launches = 0
+fused_gray_stats_rgb.launches = 0

@@ -15,7 +15,8 @@ on a TPU (``FACET_ENTROPY_IMPL``, resolved once by ``resolve_entropy_impl``):
 
 - ``pallas`` (the default): entropy from kernel 1 (``ops/entropy.py``) over
   the hue and saturation planes; gray histogram and stencil sums from
-  kernel 5 (``ops/gray_stats.py``); saturation sum a plain reduction.
+  kernel 5 (``ops/gray_stats.py:fused_gray_stats_rgb``, which makes the
+  gray from the RGB itself); saturation sum a plain reduction.
 - ``pallas_fused``, exact tier: entropy, gray histogram and saturation sum
   from kernel 4 (``ops/fused_stats.py``) in one read of the RGB; stencil
   sums from kernel 5. In the fast tier it runs the ``pallas``
@@ -36,10 +37,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from facet_tpu_torch.ops.colorspace import rgb_to_gray, rgb_to_hsv
+from facet_tpu_torch.ops.colorspace import rgb_to_hsv
 from facet_tpu_torch.ops.entropy import hs_entropy
 from facet_tpu_torch.ops.fused_stats import fused_stats, split_pair
-from facet_tpu_torch.ops.gray_stats import fused_gray_stats
+from facet_tpu_torch.ops.gray_stats import fused_gray_stats_rgb
 
 CHUNK = 256     # images per device call for one shape
 ENTROPY_IMPLS = ("pallas", "pallas_fused")
@@ -97,7 +98,7 @@ def batch_stats(rgb_batch, hs_subsample=1, entropy_impl="pallas"):
         raise ValueError(f"entropy_impl must be one of {ENTROPY_IMPLS}, "
                          f"got {entropy_impl!r}")
     b = rgb_batch.shape[0]
-    gray_hist, lap_sum, lapsq_sum, imm_sum = fused_gray_stats(rgb_to_gray(rgb_batch))
+    gray_hist, lap_sum, lapsq_sum, imm_sum = fused_gray_stats_rgb(rgb_batch)
     if entropy_impl == "pallas_fused" and hs_subsample == 1:
         entropy, gray_hist, sat = fused_stats(rgb_batch)
     else:

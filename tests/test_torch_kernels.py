@@ -192,12 +192,43 @@ def test_gray_stats_twin_matches_jax(shape):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+@pytest.mark.parametrize("shape", [(3, 120, 170), (1, 3, 3), (2, 37, 53)])
+def test_gray_stats_rgb_twin_matches_jax(shape):
+    """Kernel 5's RGB entry against pallas_stats.fused_gray_stats on the JAX
+    package's exact-cv2 gray of the same pixels."""
+    from facet_tpu.ops import colorspace as jcs
+    from facet_tpu.ops.pallas_stats import fused_gray_stats as jax_gray_stats
+
+    rgb = _images(*shape, seed=sum(shape) + 1)
+    want = jax_gray_stats(jcs.rgb_to_gray(jnp.asarray(rgb)))
+    got = gray_stats.fused_gray_stats_rgb(torch.from_numpy(rgb))
+    assert got[0].dtype == torch.int32
+    assert all(t.dtype == torch.int64 for t in got[1:])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
 def test_stats_wrappers_check_inputs():
     rgb = torch.zeros(1, 4, 5, 3, dtype=torch.uint8)
     fused_stats.fused_stats(rgb)
     gray_stats.fused_gray_stats(torch.zeros(1, 4, 5, dtype=torch.int32))
+    gray_stats.fused_gray_stats_rgb(rgb)
     assert fused_stats.fused_stats.launches == 0     # the CPU never launches
     assert gray_stats.fused_gray_stats.launches == 0
+    assert gray_stats.fused_gray_stats_rgb.launches == 0
+    with pytest.raises(TypeError):
+        gray_stats.fused_gray_stats_rgb(rgb.to(torch.int32))
+    with pytest.raises(ValueError):
+        gray_stats.fused_gray_stats_rgb(torch.zeros(1, 4, 5, 4, dtype=torch.uint8))
+    with pytest.raises(ValueError):
+        gray_stats.fused_gray_stats_rgb(torch.zeros(4, 5, 3, dtype=torch.uint8))
+    with pytest.raises(ValueError):
+        gray_stats.fused_gray_stats_rgb(torch.zeros(1, 1, 5, 3, dtype=torch.uint8))
+    with pytest.raises(ValueError):
+        gray_stats.fused_gray_stats_rgb(torch.zeros(1, 4, 1, 3, dtype=torch.uint8))
+    with pytest.raises(ValueError):
+        gray_stats.fused_gray_stats_rgb(torch.zeros(1, 5, 4, 3, dtype=torch.uint8)
+                                        .transpose(1, 2))
     with pytest.raises(TypeError):
         fused_stats.fused_stats(rgb.to(torch.int32))
     with pytest.raises(ValueError):
@@ -430,6 +461,64 @@ def test_gray_stats_kernel_matches_twin(cuda, shape):
     for g, w in zip(gray_stats.fused_gray_stats(gray),
                     gray_stats.fused_gray_stats_plain(gray)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 3, 3), (3, 37, 53), (2, 481, 641), "offset"])
+def test_gray_stats_rgb_kernel_matches_twin(cuda, shape):
+    """The RGB entry; "offset" starts the batch one byte past an aligned
+    address, so no row starts on a 16-byte boundary."""
+    if shape == "offset":
+        flat = torch.from_numpy(_images(2, 97, 131, seed=13)).reshape(-1).to(cuda)
+        rgb = torch.cat([flat.new_zeros(1), flat])[1:].view(2, 97, 131, 3)
+    else:
+        rgb = torch.from_numpy(_images(*shape, seed=12)).to(cuda)
+    for g, w in zip(gray_stats.fused_gray_stats_rgb(rgb),
+                    gray_stats.fused_gray_stats_rgb_plain(rgb)):
+        assert torch.equal(g, w)
+
+
+def _big_photo(kind, device):
+    """One 24 MP photo (4000 x 6000): "near_uniform", one colour with every
+    997th pixel random (nearly every pixel in one bin, past 2^24 of them),
+    or "noisy", every channel uniform."""
+    rng = np.random.default_rng(24)
+    noise = rng.integers(0, 256, (1, 4000, 6000, 3), dtype=np.uint8)
+    if kind == "near_uniform":
+        rgb = np.empty_like(noise)
+        rgb[...] = (90, 140, 200)
+        rgb.reshape(-1, 3)[::997] = noise.reshape(-1, 3)[::997]
+        noise = rgb
+    return torch.from_numpy(noise).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["near_uniform", "noisy"])
+@pytest.mark.parametrize("kernel", ["hs_entropy", "fused_stats", "gray_stats",
+                                    "gray_stats_rgb"])
+def test_stats_kernels_above_16mp(cuda, kernel, kind):
+    """Kernels 1, 4 and 5 (both entries) on one 24 MP photo: every count
+    and integer sum identical to the twins, which count in int64."""
+    from facet_tpu_torch.ops.colorspace import rgb_to_gray, rgb_to_hsv
+
+    rgb = _big_photo(kind, cuda)
+    if kernel == "hs_entropy":
+        hh, ss, _ = rgb_to_hsv(rgb)
+        hue, sat = hh.reshape(1, -1).contiguous(), ss.reshape(1, -1).contiguous()
+        got, hist = entropy.hs_entropy_with_histogram(hue, sat)
+        assert torch.equal(hist, entropy.hs_histogram_plain(hue, sat))
+        assert float((got - entropy.hs_entropy_plain(hue, sat)).abs().max()) <= 1e-5
+    elif kernel == "fused_stats":
+        got = fused_stats.fused_stats(rgb)
+        want = fused_stats.fused_stats_plain(rgb)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+        assert float((got[0] - want[0]).abs().max()) <= 1e-5
+    else:
+        gray = rgb_to_gray(rgb).contiguous()
+        got = (gray_stats.fused_gray_stats_rgb(rgb) if kernel == "gray_stats_rgb"
+               else gray_stats.fused_gray_stats(gray))
+        for g, w in zip(got, gray_stats.fused_gray_stats_plain(gray)):
+            assert torch.equal(g, w)
 
 
 @pytest.mark.cuda

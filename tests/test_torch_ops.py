@@ -38,6 +38,11 @@ def test_rgb_to_hsv_full_cube():
     got = [t.numpy() for t in colorspace.rgb_to_hsv(torch.from_numpy(cube))]
     for name, a, b in zip("hsv", got, want):
         np.testing.assert_array_equal(a, b, err_msg=name)
+    # every triple lands in the 180 x 256 H-S histogram: the one-pass
+    # kernel (csrc/fused_stats.cu) counts an image's pixels as its in-range
+    # count
+    assert got[0].min() >= 0 and got[0].max() < 180
+    assert got[1].min() >= 0 and got[1].max() < 256
 
 
 def test_reciprocal_tables_match_cv2_formula():
@@ -117,6 +122,24 @@ def test_batch_stats_configurations_match_jax(entropy_impl, hs_subsample):
     for k, shift in ((1, 12), (3, 12), (4, 16), (5, 12)):
         for j in range(2):
             assert split_total(got[k][j], shift) == jsplit(want[k][j], shift), k
+
+
+@pytest.mark.parametrize("entropy_impl", ["pallas", "pallas_fused"])
+def test_batch_stats_gray_stats_read_the_rgb(monkeypatch, entropy_impl):
+    """In both configurations the prepass hands kernel 5 the uint8 RGB batch
+    itself (fused_gray_stats_rgb), and makes no gray plane for it."""
+    from facet_tpu_torch.ops import stats
+
+    seen = []
+    entry = stats.fused_gray_stats_rgb
+    monkeypatch.setattr(stats, "fused_gray_stats_rgb",
+                        lambda rgb: seen.append(rgb) or entry(rgb))
+    rgb = torch.from_numpy(_photo_like(2, 37, 53, seed=5))
+    out = stats.batch_stats(rgb, 1, entropy_impl)
+    assert len(seen) == 1 and seen[0] is rgb
+    assert not hasattr(stats, "rgb_to_gray")
+    want = entry(rgb)
+    assert torch.equal(out[0], want[0])
 
 
 def test_resolve_entropy_impl(monkeypatch):
