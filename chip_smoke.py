@@ -53,7 +53,29 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    integer-derived columns, TOPIQ's scores), with each CLIP embedding at
    cosine similarity EMBEDDING_MIN_COSINE or more to the default's. TOPIQ
    must run with TF32 off in every scan although the process keeps torch's
-   defaults.
+   defaults;
+5. the default multi-pass scan, ``python -m facet_tpu_torch <dir>`` with
+   ``models.vram_profile: "16gb"`` (clip, topiq, samp_net, insightface in
+   one pass group): SCRFD det_10g at 640 px, TOPIQ at 384 and U2-Net-P +
+   SAMP-Net at 224 ride the fused pass's resident batch, then the landmark
+   net (192 px) and ArcFace (112 px) run on the face crops. SCRFD's three
+   reg scales are set to SCRFD_REG_SCALE after its fallback init (which
+   leaves them at zero in both packages, so that no box would have a size).
+   Checked: kernels 1, 5 and 2 launch (and no other); no member is skipped
+   as unavailable; every row is complete, with SAMP-Net's composition (not
+   the rule-based analyzer's) and the face columns filled; the faces table
+   holds a row per face with 512 float32 values of embedding, 106x2
+   landmarks and a JPEG thumbnail (none where the padded box's crop holds
+   no pixel of the photo, as in the JAX package); pHash and the integer-derived columns
+   equal the default --pass quality scan's (exposure_score within the 2
+   places the default scan keeps: a --pass scan's recompute stores 4); each
+   new float32 member
+   (U2-Net-P, SAMP-Net, SCRFD, the landmark net, ArcFace) and TOPIQ run
+   with TF32 off. It prints the scan's images/s and phase times, then each
+   new member's device time per batch of 24 at 1024x1536 (CUDA events, and
+   replayed from a CUDA graph): the SAMP rider, SCRFD's detection and
+   decode, the landmark net and ArcFace on as many crops as the scan found
+   faces in those photos.
 
 The second-to-last line is the kernel report, a JSON object; the last line
 is {"ok": true, "device": {...}}.
@@ -71,7 +93,9 @@ commit: ``mkdir -p build/parent && git archive <commit> | tar -x -C
 build/parent``.
 """
 
+import contextlib
 import importlib.util
+import io
 import json
 import os
 import sqlite3
@@ -120,6 +144,10 @@ SCORE_TOL = 1e-3
 VIT_LAYERS = CLIPVisionConfig().layers
 SCAN_SHAPES = ((1024, 1536), (768, 1024))
 SCAN_COUNTS = (24, 8)
+# SCRFD's per-stride reg scales for the default scan: with the fallback
+# init's zeros no box has a size and no face passes min_face_size; at 4 the
+# fallback detector finds a few faces of 20-600 px in most smoke photos
+SCRFD_REG_SCALE = 4.0
 
 # H100 SXM peaks (NVIDIA's data sheet, at a 700 W limit): HBM3 bytes/s;
 # dense bf16 tensor-core FLOP/s; 32-bit operations outside the tensor cores
@@ -1012,6 +1040,202 @@ def run_scan(photo_dir, db, cfg, impl, gpu):
     return rows, launches
 
 
+# the default multi-pass scan: its photos columns, the ones SAMP-Net and
+# the faces member write, and the float32 networks whose TF32 flags are read
+DEFAULT_COLUMNS = ROW_COLUMNS + (
+    "comp_score", "power_point_score", "composition_pattern", "leading_lines_score",
+    "face_count", "face_quality", "eye_sharpness", "face_sharpness", "face_ratio",
+    "face_confidence", "raw_eye_sharpness", "is_blink", "is_group_portrait")
+FACE_FLOATS = ("face_quality", "eye_sharpness", "face_sharpness", "face_ratio",
+               "face_confidence", "raw_eye_sharpness")
+DEFAULT_MUST = {"hs_entropy", "gray_stats", "cross_attention"}
+
+
+def set_scrfd_reg_scale(scale):
+    """Every FacePipeline.create from here on sets SCRFD's reg scales."""
+    from facet_tpu_torch.models.face_pipeline import FacePipeline
+
+    create = FacePipeline.create.__func__
+
+    def create_scaled(cls, config, cached, device):
+        pipeline = create(cls, config, cached, device)
+        with torch.no_grad():
+            for s in pipeline.detector.head.scales:
+                s.fill_(scale)
+        return pipeline
+
+    FacePipeline.create = classmethod(create_scaled)
+
+
+class Tee(io.StringIO):
+    """Keeps what is written and passes it on to ``out``."""
+
+    def __init__(self, out):
+        super().__init__()
+        self.out = out
+
+    def write(self, text):
+        self.out.write(text)
+        return super().write(text)
+
+
+def run_default_scan(photo_dir, db, quality_rows, gpu):
+    """The default multi-pass scan under the "16gb" profile, checked as the
+    docstring says -> (launches, faces found in the 1024x1536 photos)."""
+    from facet_tpu_torch.__main__ import main as cli_main
+    from facet_tpu_torch.config.default_config import write_default_config
+    from facet_tpu_torch.models.face_models import IResNet, LandmarkNet
+    from facet_tpu_torch.models.samp_net import SAMPNet
+    from facet_tpu_torch.models.scrfd import SCRFD
+    from facet_tpu_torch.models.topiq import TOPIQNet
+    from facet_tpu_torch.models.u2netp import U2NETP
+
+    cfg = os.path.join(os.path.dirname(db), "scoring_config_16gb.json")
+    write_default_config(cfg)
+    with open(cfg) as fh:
+        config = json.load(fh)
+    config["models"]["vram_profile"] = "16gb"
+    with open(cfg, "w") as fh:
+        json.dump(config, fh)
+    set_scrfd_reg_scale(SCRFD_REG_SCALE)
+    nets = (TOPIQNet, U2NETP, SAMPNet, SCRFD, LandmarkNet, IResNet)
+    seen = {net.__name__: set() for net in nets}
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(
+        lambda module, _: seen[type(module).__name__].add(tf32_flags())
+        if isinstance(module, nets) else None)
+    os.environ["FACET_ENTROPY_IMPL"] = "pallas"
+    for fn, attr in COUNTERS.values():
+        setattr(fn, attr, 0)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = Tee(sys.stdout)
+    with contextlib.redirect_stdout(out):
+        rc = cli_main([photo_dir, "--db", db, "--config", cfg])
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
+    hook.remove()
+    del os.environ["FACET_ENTROPY_IMPL"]
+    text = out.getvalue()
+    if rc != 0:
+        raise AssertionError(f"the default scan exited {rc}")
+    skipped = [ln for ln in text.splitlines() if "unavailable" in ln]
+    if skipped:
+        raise AssertionError(f"the default scan skipped members: {skipped}")
+    for name in launches:
+        if (launches[name] > 0) != (name in DEFAULT_MUST):
+            raise AssertionError(f"kernel {name} launched {launches[name]} times during "
+                                 f"the default scan")
+    for name, flags in seen.items():
+        if not flags or any(any(f) for f in flags):
+            raise AssertionError(f"{name}'s forward ran with TF32 flags {flags} in the "
+                                 f"default scan; it must run in full float32")
+    conn = sqlite3.connect(db)
+    rows = [dict(zip(DEFAULT_COLUMNS, r)) for r in conn.execute(
+        f"SELECT {', '.join(DEFAULT_COLUMNS)} FROM photos ORDER BY path")]
+    faces = conn.execute("SELECT photo_path, embedding, landmark_2d_106, face_thumbnail,"
+                         " bbox_x1, bbox_y1, bbox_x2, bbox_y2 FROM faces").fetchall()
+    conn.close()
+    if [r["path"] for r in rows] != [r["path"] for r in quality_rows]:
+        raise AssertionError("the default scan wrote other photos than the quality scan")
+    for row, want in zip(rows, quality_rows):
+        for col in ("aesthetic", "topiq_score", "phash", "aggregate", "clip_embedding",
+                    "comp_score", "power_point_score", "composition_pattern", "face_count"):
+            if row[col] is None:
+                raise AssertionError(f"null {col} in row {row['path']} (default scan)")
+        if row["scoring_model"] != "topiq" or row["leading_lines_score"] is not None:
+            raise AssertionError(f"{row['path']}: scored by {row['scoring_model']!r}, "
+                                 f"leading lines {row['leading_lines_score']!r}: not "
+                                 f"TOPIQ and SAMP-Net")
+        if row["face_count"] and any(row[c] is None for c in FACE_FLOATS):
+            raise AssertionError(f"{row['path']}: face columns not filled: "
+                                 f"{[(c, row[c]) for c in FACE_FLOATS]}")
+        for col in EXACT_COLUMNS:
+            # a --pass scan's aggregate recompute rewrites exposure_score to 4
+            # places (both packages); the default scan keeps the statistics'
+            # 2-place value
+            if (abs(row[col] - want[col]) > 0.005 if col == "exposure_score"
+                    else row[col] != want[col]):
+                raise AssertionError(f"{col} differs between the default and the "
+                                     f"--pass quality scans at {row['path']}")
+    counted = sum(r["face_count"] for r in rows)
+    if not faces or len(faces) != counted:
+        raise AssertionError(f"{len(faces)} faces rows for {counted} faces counted")
+    for path, emb, lmk, thumb, *box in faces:
+        emb = np.frombuffer(emb, np.float32)
+        lmk = np.frombuffer(lmk, np.float32)
+        if emb.shape != (512,) or lmk.shape != (212,) or not (
+                np.isfinite(emb).all() and np.isfinite(lmk).all()):
+            raise AssertionError(f"a faces row of {path}: embedding {emb.shape}, "
+                                 f"landmarks {lmk.shape}, or not finite")
+        if box[2] <= box[0] or box[3] <= box[1]:
+            raise AssertionError(f"a faces row of {path}: box {box}")
+        # the face pipeline writes a thumbnail exactly when its crop of the
+        # 30%-padded box, sliced as numpy slices it (a negative end counts
+        # from the far side), holds pixels: random boxes may lie off the photo
+        h, w = map(int, os.path.basename(path).split("_")[1].split("x"))
+        pad_x, pad_y = 0.3 * (box[2] - box[0]), 0.3 * (box[3] - box[1])
+        inside = (len(range(w)[int(max(0, box[0] - pad_x)):int(min(w, box[2] + pad_x))])
+                  and len(range(h)[int(max(0, box[1] - pad_y)):int(min(h, box[3] + pad_y))]))
+        if bool(inside) != (thumb is not None) or (thumb and thumb[:2] != b"\xff\xd8"):
+            raise AssertionError(f"a faces row of {path}: box {box}, thumbnail "
+                                 f"{thumb[:4] if thumb else thumb}")
+    big = [r for r in rows if f"_{SCAN_SHAPES[0][0]}x" in os.path.basename(r["path"])]
+    phase("default", f"TF32 flags (cudnn, matmul) inside each float32 member's forwards: "
+                     f"{ {name: sorted(flags) for name, flags in seen.items()} }")
+    phase("default", f"{len(rows)} rows complete (SAMP-Net composition, patterns "
+                     f"{sorted({r['composition_pattern'] for r in rows})}); {counted} faces "
+                     f"on {sum(1 for r in rows if r['face_count'])} photos, "
+                     f"{len(faces)} faces rows (512-d embedding, 106x2 landmarks), "
+                     f"{sum(1 for f in faces if f[3])} with a JPEG thumbnail; "
+                     f"pHash and integer columns equal the --pass quality scan's")
+    phase("default", f"kernel launches during the scan {launches}; "
+                     f"{len(rows) / seconds:.2f} images/s end to end ({seconds:.1f} s, {gpu})")
+    for ln in text.splitlines():
+        if "phases:" in ln or "scan complete:" in ln or "multi-pass:" in ln:
+            phase("default", ln.strip())
+    return launches, sum(r["face_count"] for r in big)
+
+
+def time_members(gpu, crops):
+    """Device time of each new member per batch of 24 at 1024x1536: CUDA
+    events (host launches included) and replayed from a CUDA graph."""
+    from facet_tpu_torch.models.face_pipeline import FacePipeline
+    from facet_tpu_torch.models.samp_net import SAMPComposition
+
+    h, w = SCAN_SHAPES[0]
+    b = SCAN_COUNTS[0]
+    crops = max(crops, 1)
+    dev = torch.from_numpy(np.stack(synthetic_photos(b, h, w, seed=h * 7))).cuda()
+    samp = SAMPComposition.create(None, None, "cuda")
+    faces = FacePipeline.create(None, None, "cuda")
+    samp_run, _ = samp.rider(h, w)
+    det_run, _ = faces._detect_program(h, w)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    lmk = torch.rand((crops, 192, 192, 3), device="cuda", generator=gen) * 2 - 1
+    emb = torch.rand((crops, 112, 112, 3), device="cuda", generator=gen) * 2 - 1
+
+    def net_call(net, x):
+        def call():
+            with torch.no_grad(), full_float32():
+                return net(x)
+        return call
+
+    members = {"samp rider (224 px resize, U2-Net-P, SAMP-Net)": lambda: samp_run(dev),
+               "SCRFD detect + decode (640 px letterbox, det_10g, top-64)":
+                   lambda: det_run(dev),
+               f"landmark net on {crops} crops (192 px)": net_call(faces.landmark_net, lmk),
+               f"ArcFace on {crops} crops (112 px)": net_call(faces.embedder, emb)}
+    with torch.no_grad():
+        for name, fn in members.items():
+            events = cuda_median_ms(fn, reps=5)
+            graph = graph_ms(fn, launches=3)
+            phase("members", f"{name}: {events:.3f} ms by events, {graph:.3f} ms in a "
+                             f"CUDA graph, per batch of {b} at {h}x{w} ({gpu})")
+    del samp, faces, dev
+    torch.cuda.empty_cache()
+
+
 def compare_rows(got, want):
     """The pallas_fused scan's rows against the default scan's."""
     if [r["path"] for r in got] != [r["path"] for r in want]:
@@ -1071,6 +1295,9 @@ def phase_scan(gpu):
         cfg = os.path.join(tmp, "scoring_config.json")
         scans = {impl: run_scan(photo_dir, os.path.join(tmp, f"{impl}.db"), cfg,
                                 impl, gpu) for impl in SCANS}
+        default, crops = run_default_scan(photo_dir, os.path.join(tmp, "default.db"),
+                                          scans["pallas"][0], gpu)
+    time_members(gpu, crops)
     for rows, _ in scans.values():
         if len(rows) != len(paths):
             raise AssertionError(f"{len(rows)} rows for {len(paths)} photos")
@@ -1086,22 +1313,25 @@ def phase_scan(gpu):
                       f"{SCORE_TOL}), min clip_embedding cosine {worst['cosine']:.6f} "
                       f"(limit {EMBEDDING_MIN_COSINE}), tags differ on "
                       f"{worst['tags_differ']} of {len(paths)} photos")
-    return {impl: launches for impl, (_, launches) in scans.items()}
+    return {"default": default,
+            **{impl: launches for impl, (_, launches) in scans.items()}}
 
 
 # name -> (source, the TPU kernel it replaces, the scan whose count is its
-# launches on the main path; kernel 3 is on no path of the engine)
+# launches on the main path: the default multi-pass scan for the kernels of
+# the default configuration, else the scan of the setting that selects the
+# kernel; kernel 3 is on no path of the engine)
 KERNELS = {
     "hs_entropy": ("facet_tpu_torch/csrc/hs_entropy.cu",
-                   "facet_tpu/ops/pallas_entropy.py:252", "pallas"),
+                   "facet_tpu/ops/pallas_entropy.py:252", "default"),
     "hs_entropy_fixed": ("facet_tpu_torch/csrc/hs_entropy.cu",
-                         "facet_tpu/ops/pallas_entropy.py:116", "pallas"),
+                         "facet_tpu/ops/pallas_entropy.py:116", "default"),
     "fused_stats": ("facet_tpu_torch/csrc/fused_stats.cu",
                     "facet_tpu/ops/pallas_fused_stats.py:236", "pallas_fused"),
     "gray_stats": ("facet_tpu_torch/csrc/gray_stats.cu",
-                   "facet_tpu/ops/pallas_stats.py:168", "pallas"),
+                   "facet_tpu/ops/pallas_stats.py:168", "default"),
     "cross_attention": ("facet_tpu_torch/csrc/cross_attention.cu",
-                        "facet_tpu/ops/pallas_attn.py:96", "pallas"),
+                        "facet_tpu/ops/pallas_attn.py:96", "default"),
     "softmax": ("facet_tpu_torch/csrc/row_softmax.cu",
                 "facet_tpu/ops/pallas_softmax.py:53", "psoftmax"),
     "flash_attention": ("facet_tpu_torch/csrc/vit_attention.cu",

@@ -1,21 +1,23 @@
-"""Command line of the port: ``python -m facet_tpu_torch <dir> --pass quality``.
+"""Command line of the port: ``python -m facet_tpu_torch <dir>``.
 
-The scan path of ``photos.py`` for the passes the port runs:
-``--pass quality|embeddings|tags``, with ``--db``, ``--config``, ``--force``,
-``--limit`` and ``--speed-tier``. It runs on the card; ``--device cpu`` asks
-for the CPU (the counterpart of photos.py's JAX platform setting), and
-without a usable card and that flag it exits with an error. The default
-multi-pass scan and ``--single-pass`` need ensemble members that are not
-ported yet, so they exit non-zero and name those members instead of
-silently scoring fewer; every other ``photos.py`` mode exits with "not yet
-ported".
+The scan path of ``photos.py``: the default multi-pass scan and
+``--pass quality|embeddings|tags|composition|faces``, with ``--db``,
+``--config``, ``--force``, ``--limit`` and ``--speed-tier``. It runs on the
+card; ``--device cpu`` asks for the CPU (the counterpart of photos.py's JAX
+platform setting), and without a usable card and that flag it exits with
+an error. A default scan whose profile selects a member that is not ported
+yet (the VLM tagger of the "24gb" profile, which ``vram_profile: auto``
+picks on a card of 20 GB or more) exits non-zero and names that member
+instead of silently scoring fewer; so do ``--single-pass`` and
+``--dry-run``, naming what they need. Every other ``photos.py`` mode exits
+with "not yet ported".
 """
 
 import argparse
 import os
 import sys
 
-from facet_tpu_torch.processing.multi_pass import PASS_NAMES, PORTED_PASSES
+from facet_tpu_torch.processing.multi_pass import PASS_NAMES
 
 
 def build_parser():
@@ -29,6 +31,8 @@ def build_parser():
                    help="run one pass over the photos")
     p.add_argument("--single-pass", action="store_true",
                    help="photos.py's streaming mode (not yet ported)")
+    p.add_argument("--dry-run", action="store_true",
+                   help="photos.py's score-without-saving preview (not yet ported)")
     p.add_argument("--force", action="store_true", help="rescan already-scored photos")
     p.add_argument("--limit", type=int, default=None, help="max photos this run")
     p.add_argument("--speed-tier", choices=["exact", "fast"], default=None)
@@ -72,18 +76,24 @@ def main(argv=None):
         config.config.setdefault("processing", {})["speed_tier"] = args.speed_tier
     scorer = Facet(db_path, config, device=device)
 
-    if args.pass_name is None or args.single_pass:
-        mode = "--single-pass" if args.single_pass else "the default multi-pass scan"
+    if args.single_pass or args.dry_run:
+        mode, needs = (("--single-pass", "the streaming BatchProcessor "
+                        "(processing/batch_processor.py)") if args.single_pass else
+                       ("--dry-run", "Facet.score_paths, the per-photo scoring path"))
+        print(f"{mode} is not yet ported to facet_tpu_torch: it needs {needs}; run "
+              f"the default scan or --pass {'|'.join(PASS_NAMES)}, or use photos.py",
+              file=sys.stderr)
+        return 2
+    if args.pass_name is None:
         missing = scorer.models.unported(scorer.models.select_models(config))
-        print(f"{mode} is not yet ported to facet_tpu_torch: it needs "
-              f"{missing or 'the streaming batch processor'}; run --pass "
-              f"{'|'.join(PORTED_PASSES)} or use photos.py", file=sys.stderr)
-        return 2
-    if args.pass_name not in PORTED_PASSES:
-        missing = scorer.models.unported(PASS_NAMES[args.pass_name])
-        print(f"--pass {args.pass_name} is not yet ported to facet_tpu_torch: "
-              f"it needs {missing}", file=sys.stderr)
-        return 2
+        if missing:
+            profile = config.get_model_config().get("vram_profile")
+            print(f"the default multi-pass scan under the '{profile}' profile is not "
+                  f"yet ported to facet_tpu_torch: it needs {missing}; set "
+                  f"models.vram_profile to a profile without them (\"16gb\" runs "
+                  f"TOPIQ, SAMP-Net, CLIP tagging and faces), run --pass "
+                  f"{'|'.join(PASS_NAMES)}, or use photos.py", file=sys.stderr)
+            return 2
 
     scanning = config.get_scanning_settings()
     files = gather_image_files(args.directory,
@@ -99,7 +109,11 @@ def main(argv=None):
         return 0
     print(f"found {len(files)} photos to process")
 
-    ChunkedMultiPassProcessor(scorer).run_single_pass(files, args.pass_name)
+    processor = ChunkedMultiPassProcessor(scorer)
+    if args.pass_name:
+        processor.run_single_pass(files, args.pass_name)
+    else:
+        processor.process_directory(files)
 
     # post-scan: burst grouping + tag backfill from stored embeddings
     process_bursts(db_path, config)

@@ -6,9 +6,9 @@ unless the caller asks for the CPU (``device="cpu"``), and raises when
 there is no usable card. Device memory comes from
 ``torch.cuda.mem_get_info`` (total memory of the card), or host RAM in CPU
 mode; pass grouping is the same first-fit-decreasing bin packing over
-that budget. Factories are registered for ``clip`` and ``topiq`` only; any
-other member of the JAX package's ensemble raises ``NotImplementedError``
-naming the ROADMAP queue it waits in.
+that budget. Factories are registered for ``clip``, ``topiq``, ``samp_net``
+and ``insightface``; any other member of the JAX package's ensemble raises
+``NotImplementedError`` naming the ROADMAP entry it waits in.
 """
 
 import os
@@ -17,8 +17,10 @@ import torch
 
 # Footprints in GB of the ported models: device memory (params + activation
 # headroom) and host RAM in CPU mode, as the JAX package budgets them.
-MODEL_DEVICE_REQUIREMENTS = {"clip": 2.0, "topiq": 1.5}
-MODEL_RAM_REQUIREMENTS = {"clip": 3.0, "topiq": 2.0}
+MODEL_DEVICE_REQUIREMENTS = {"clip": 2.0, "topiq": 1.5, "samp_net": 0.6,
+                             "insightface": 0.8}
+MODEL_RAM_REQUIREMENTS = {"clip": 3.0, "topiq": 2.0, "samp_net": 1.0,
+                          "insightface": 1.2}
 
 QUALITY_MODEL_ALIASES = {
     "topiq": "topiq", "hyperiqa": "hyperiqa", "dbcnn": "dbcnn", "musiq": "musiq",
@@ -29,15 +31,13 @@ QUALITY_MODEL_ALIASES = {
 # Members of the JAX package's ensemble that this port does not run yet ->
 # where ROADMAP.md queues them.
 UNPORTED = {
-    "samp_net": "Queue 1 #5 (samp member: U2-Net-P + SAMP-Net)",
-    "insightface": "Queue 1 #6 (faces member: SCRFD, landmarks, ArcFace)",
-    "clipiqa": "Queue 1 #9.4 (CLIP-IQA+)",
-    "hyperiqa": "Queue 1 #9.4 (HyperIQA)",
-    "dbcnn": "Queue 1 #9.4 (DBCNN)",
-    "musiq": "Queue 1 #9.4 (MUSIQ)",
-    "vlm_tagger": "Queue 1 #9.6 (Qwen2.5-VL tagger)",
-    "qwen3_vl_tagger": "Queue 1 #9.6 (Qwen3-VL tagger)",
-    "ram_tagger": "Queue 1 #9.5 (RAM++ tagger)",
+    "clipiqa": "Queue 1 #9.2 (CLIP-IQA+)",
+    "hyperiqa": "Queue 1 #9.2 (HyperIQA)",
+    "dbcnn": "Queue 1 #9.2 (DBCNN)",
+    "musiq": "Queue 1 #9.2 (MUSIQ)",
+    "vlm_tagger": "Queue 1 #9.4 (Qwen2.5-VL tagger)",
+    "qwen3_vl_tagger": "Queue 1 #9.4 (Qwen3-VL tagger)",
+    "ram_tagger": "Queue 1 #9.3 (RAM++ tagger)",
 }
 
 
@@ -102,8 +102,20 @@ class ModelManager:
 
             return TOPIQScorer.create(config, cached, device)
 
+        def make_samp(config, cached):
+            from facet_tpu_torch.models.samp_net import SAMPComposition
+
+            return SAMPComposition.create(config, cached, device)
+
+        def make_insightface(config, cached):
+            from facet_tpu_torch.models.face_pipeline import FacePipeline
+
+            return FacePipeline.create(config, cached, device)
+
         self._factories["clip"] = make_clip
         self._factories["topiq"] = make_topiq
+        self._factories["samp_net"] = make_samp
+        self._factories["insightface"] = make_insightface
 
     def load_model(self, name):
         if name in self.loaded:

@@ -221,20 +221,24 @@ class TOPIQNet(nn.Module):
                 + P.dense(p + ("head1",), self.head1))
 
 
-# Rider slice size. The JAX package capped TOPIQ at 16 images per call for
-# 16 GB of HBM; here the slice comes from the card's free memory. Basis:
-# activations of one image at input size s are budgeted at
+# Rider slice size, for TOPIQ and the other members that ride the fused
+# pass (SAMP-Net, SCRFD). The JAX package capped TOPIQ at 16 images per
+# call for 16 GB of HBM; here the slice comes from the card's free memory.
+# Basis: activations of one image at input size s are budgeted at
 # ACT_BYTES_PER_INPUT_PIXEL * s^2 (ResNet50 + the non-kernel attention
 # levels in f32) plus the f32 copy and first resize pass of the source
 # image (2 * 12 bytes per source pixel); a slice may use half the free
-# memory at the time the rider is built.
+# memory at the time the rider is built. On the CPU a slice is 16 images.
 ACT_BYTES_PER_INPUT_PIXEL = 4096
 MAX_SLICE = 256
 
 
-def rider_slice_size(h, w, input_size, free_bytes):
+def rider_slice_size(device, h, w, input_size):
+    if torch.device(device).type != "cuda":
+        return 16
+    free, _ = torch.cuda.mem_get_info(device)
     per_image = ACT_BYTES_PER_INPUT_PIXEL * input_size ** 2 + 24 * h * w
-    return int(max(1, min(MAX_SLICE, (free_bytes // 2) // per_image)))
+    return int(max(1, min(MAX_SLICE, (free // 2) // per_image)))
 
 
 class TOPIQScorer:
@@ -286,12 +290,6 @@ class TOPIQScorer:
             std = torch.as_tensor(IMAGENET_STD, device=x.device)
             return self.net((x - mean) / std)
 
-    def slice_size(self, h, w):
-        if self.device.type != "cuda":
-            return 16
-        free, _ = torch.cuda.mem_get_info(self.device)
-        return rider_slice_size(h, w, self.config.input_size, free)
-
     def _postprocess(self, raw):
         lo, hi = self.score_range
         return [round(float(np.clip((r - lo) / (hi - lo), 0, 1) * 10.0), 2)
@@ -302,7 +300,7 @@ class TOPIQScorer:
         launches the forward slice by slice on the device tensor and returns
         un-fetched outputs; `finish` takes the fetched outputs and the image
         count and yields the 0-10 scores."""
-        cap = self.slice_size(h, w)
+        cap = rider_slice_size(self.device, h, w, self.config.input_size)
 
         def run(dev):
             return [self.forward_u8(dev[i:i + cap]) for i in range(0, dev.shape[0], cap)]

@@ -153,8 +153,9 @@ def fallback_values(leaves, seed=0):
 def _assign(leaves, values):
     with torch.no_grad():
         for leaf in leaves:
-            arr = np.ascontiguousarray(leaf.convert(np.asarray(values[leaf.path],
-                                                               np.float32)))
+            # np.array, not np.ascontiguousarray, which makes a 0-d leaf 1-d
+            arr = np.array(leaf.convert(np.asarray(values[leaf.path], np.float32)),
+                           order="C")
             if tuple(arr.shape) != tuple(leaf.tensor.shape):
                 raise ValueError(f"{'/'.join(leaf.path)}: flax shape "
                                  f"{values[leaf.path].shape} does not map onto "

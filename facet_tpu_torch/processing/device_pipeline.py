@@ -11,9 +11,10 @@ head and the normalized embedding. The ViT's attention schedule
 ``flash``; see ``models/clip.py``) is read once per scorer, as the JAX
 package reads it once per fused pipeline.
 
-Joint dispatch: the uint8 chunk crosses host->device once; the fused work
-and every rider (TOPIQ) are launched on that same CUDA tensor back to back,
-then the host synchronizes once and fetches everything.
+Joint dispatch: the uint8 chunk crosses host->device once; the fused work,
+SCRFD's detection program (the face pipeline) and every rider (TOPIQ,
+SAMP-Net) are launched on that same CUDA tensor back to back, then the host
+synchronizes once and fetches everything.
 
 Left out on purpose: the device mesh and ``shard_map`` (they return with
 multi-GPU data parallelism) and the power-of-two batch padding, which only
@@ -36,6 +37,8 @@ _STAT_KEYS = ("gray_hist", "sat", "hs_entropy", "lap", "lapsq", "imm")
 
 
 def _to_numpy(tree):
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: _to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -92,17 +95,25 @@ class FusedScorer:
                 crops, self.attn_impl)
         return out
 
-    def score_images(self, images, riders=None):
+    def score_images(self, images, face_pipeline=None, riders=None):
         """List of RGB uint8 arrays -> aligned list of
         (aesthetic, embedding_bytes, phash_hex, ImageStats).
 
-        ``riders``: name -> scorer exposing ``rider(h, w) -> (run, finish)``
-        (TOPIQ). Each rider runs on the same resident batch and is fetched
-        with the fused outputs; whenever ``riders`` is given the return
-        value is ``(results, rider_results)``, rider_results mapping each
-        name to its aligned output list.
+        ``face_pipeline``: its detection program (letterbox, SCRFD, top-k
+        decode) runs on the same resident batch, and the host decodes the
+        fetched candidates into per-image detections (``detect_batch``'s
+        format). ``riders``: name -> scorer exposing
+        ``rider(h, w) -> (run, finish)`` (TOPIQ, SAMP-Net), each run on the
+        same resident batch. Everything is fetched together, once per chunk.
+
+        Returns ``results`` alone with neither, ``(results, detections)``
+        with only ``face_pipeline``, and ``(results, detections,
+        rider_results)`` whenever ``riders`` is given (an empty dict
+        included; detections are then None without ``face_pipeline``),
+        rider_results mapping each rider name to its aligned output list.
         """
         results = [None] * len(images)
+        detections = [None] * len(images) if face_pipeline is not None else None
         riders_passed = riders is not None
         riders = riders or {}
         rider_results = {name: [None] * len(images) for name in riders}
@@ -110,20 +121,30 @@ class FusedScorer:
         for i, img in enumerate(images):
             by_shape.setdefault(img.shape[:2], []).append(i)
         for (h, w), all_idxs in by_shape.items():
+            det_run = det_scale = None
+            if face_pipeline is not None:
+                det_run, det_scale = face_pipeline._detect_program(h, w)
             progs = {name: scorer.rider(h, w) for name, scorer in riders.items()}
             for start in range(0, len(all_idxs), CHUNK):
                 idxs = all_idxs[start:start + CHUNK]
                 batch = np.stack([images[i] for i in idxs])
                 dev = torch.from_numpy(batch).to(self.device)     # one copy in
                 out = self.run(dev)
+                det_out = det_run(dev) if det_run is not None else None
                 rider_out = {name: run(dev) for name, (run, _) in progs.items()}
-                out, rider_out = fetch([out, rider_out], self.device)
+                out, det_out, rider_out = fetch([out, det_out, rider_out], self.device)
+                if det_run is not None:
+                    for idx, dets in zip(idxs, face_pipeline.decode_detections(
+                            det_out, det_scale, len(idxs))):
+                        detections[idx] = dets
                 for name, (_, finish) in progs.items():
                     for idx, val in zip(idxs, finish(rider_out[name], len(idxs))):
                         rider_results[name][idx] = val
                 self._collect(out, idxs, h, w, results)
         if riders_passed:
-            return results, rider_results
+            return results, detections, rider_results
+        if face_pipeline is not None:
+            return results, detections
         return results
 
     @staticmethod

@@ -1,13 +1,18 @@
 """Chunked multi-pass processing: the port's scan driver.
 
-Counterpart of ``facet_tpu/processing/multi_pass.py`` for the ``--pass``
-scans (quality, embeddings, tags): per chunk the host decodes and reads
-EXIF once (decode of chunk N+1 overlaps the device work of chunk N), the
-fused clip pass scores every image with TOPIQ riding the same resident
-batch, then tagging, thumbnails, row assembly with the aggregate, and one
-SQLite transaction per chunk; after the scan the aggregates recompute from
-the merged rows. Progress reporting and the RAM monitor are the port's
-copies of the JAX package's host modules.
+Counterpart of ``facet_tpu/processing/multi_pass.py``: the default scan
+(``process_directory``) and the ``--pass`` scans (quality, embeddings,
+tags, composition, faces). The selected members are bin-packed into pass
+groups against the device-memory budget. Per chunk the host decodes and
+reads EXIF once (decode of chunk N+1 overlaps the device work of chunk N);
+in the group that holds clip the fused pass scores every image, with
+SCRFD's detection, TOPIQ and SAMP-Net riding the same resident batch;
+landmarks and ArcFace then run on the face crops; a pass without clip runs
+the statistics and pHash prepass alone. Then tagging, thumbnails, row
+assembly with the aggregate, and one SQLite transaction per chunk (face
+rows included); after a ``--pass`` scan the aggregates recompute from the
+merged rows. Progress reporting and the RAM monitor are the port's copies
+of the JAX package's host modules.
 """
 
 import os
@@ -15,6 +20,8 @@ import time
 
 import numpy as np
 
+from facet_tpu_torch.ops.phash import phash_batch
+from facet_tpu_torch.ops.stats import compute_batch_stats
 from facet_tpu_torch.processing.metrics_reporter import MetricsReporter
 from facet_tpu_torch.processing.resource_monitor import MultiPassResourceMonitor
 from facet_tpu_torch.utils.exif import get_exif_batch
@@ -33,8 +40,6 @@ PASS_NAMES = {
 # TOPIQ that fails to load ends in "unavailable" and the CLIP aesthetic
 FALLBACK_CHAINS = {"topiq": ["clipiqa"]}
 QUALITY_PASS_MODELS = ("topiq", "clipiqa")
-# passes whose every member the port runs
-PORTED_PASSES = ("quality", "embeddings", "tags")
 
 # Column ownership for --pass partial updates: a single pass only
 # overwrites the columns of the models it actually ran plus the
@@ -57,6 +62,13 @@ PREPASS_COLUMNS = (
 QUALITY_COLUMNS = ("quality_score", "topiq_score", "aesthetic", "scoring_model")
 MODEL_COLUMNS = {
     "clip": ("aesthetic", "clip_embedding", "tags", "scoring_model"),
+    "samp_net": ("comp_score", "composition_pattern",
+                 "composition_explanation", "power_point_score",
+                 "leading_lines_score"),
+    "insightface": ("face_count", "face_quality", "eye_sharpness",
+                    "face_sharpness", "face_ratio", "is_blink",
+                    "is_group_portrait", "face_confidence",
+                    "raw_eye_sharpness", "isolation_bonus"),
     "topiq": QUALITY_COLUMNS,
     "clipiqa": QUALITY_COLUMNS,
 }
@@ -84,6 +96,18 @@ class ChunkedMultiPassProcessor:
         self._resolved = {}       # requested model name -> loaded name/None
         self._update_only = None  # single-pass: columns allowed to overwrite
         self.load_errors = {}     # path -> decode failure reason
+
+    # -------------------------------------------------------------- planning
+
+    def detect_and_configure(self, verbose=True):
+        memory = self.models.memory_gb
+        self.selected_models = self.models.select_models(self.config)
+        self.passes = self.models.group_passes(self.selected_models)
+        if verbose:
+            mode = f"{memory:.1f} GB on {self.models.device}" if memory > 0 else "CPU mode"
+            print(f"multi-pass: {mode}, models {self.selected_models}, "
+                  f"{len(self.passes)} pass(es): {self.passes}")
+        return self.passes
 
     # ------------------------------------------------------------- chunk IO
 
@@ -158,9 +182,12 @@ class ChunkedMultiPassProcessor:
         return None, None
 
     def _run_pass_group(self, group, state):
-        """Members of a pass group that did not ride the fused clip pass."""
+        """The members of a pass group that did not ride the fused pass."""
         for requested in group:
+            # members the rider path already served need no load here
             if requested in QUALITY_PASS_MODELS and state.get("topiq") is not None:
+                continue
+            if requested == "samp_net" and state.get("samp") is not None:
                 continue
             t0 = time.time()
             name, model = self._load_with_fallback(requested)
@@ -171,28 +198,52 @@ class ChunkedMultiPassProcessor:
             if name in QUALITY_PASS_MODELS:
                 state["topiq"] = model.score_batch(state["images"])
                 state["quality_model"] = name
+            elif name == "samp_net":
+                state["samp"] = model.score_batch(state["images"])
+            elif name == "insightface":
+                state["faces"] = model.analyze_batch(
+                    state["images"], detections=state.pop("face_detections", None))
             self.phase_times["inference"] += time.time() - t0
 
     def _run_fused_clip_pass(self, group, state):
         """The clip slot of one pass group: the fused pass (aesthetic,
-        embedding, pHash, technical statistics), with the group's quality
-        model riding the same resident batch."""
+        embedding, pHash, technical statistics), with the group's other
+        members riding the same resident batch: SCRFD's detection through
+        the face pipeline (the faces step then reuses the detections from
+        state["face_detections"]), TOPIQ and SAMP-Net as riders."""
+        face_model = None
+        if "insightface" in group:
+            t0 = time.time()
+            name, face_model = self._load_with_fallback("insightface")
+            if name != "insightface":
+                face_model = None
+            self.phase_times["model_load"] += time.time() - t0
         riders, rider_names = {}, {}
         for requested in group:
-            if requested not in QUALITY_PASS_MODELS or "quality" in riders:
+            slot = ("quality" if requested in QUALITY_PASS_MODELS
+                    else "samp" if requested == "samp_net" else None)
+            if slot is None or slot in riders:
                 continue
             t0 = time.time()
             name, model = self._load_with_fallback(requested)
             self.phase_times["model_load"] += time.time() - t0
             if model is not None and hasattr(model, "rider"):
-                riders["quality"] = model
-                rider_names["quality"] = name
+                riders[slot] = model
+                rider_names[slot] = name
         t0 = time.time()
         fused = self.scorer._fused_scorer()
-        outputs, rider_out = fused.score_images(state["images"], riders=riders)
-        if "quality" in rider_out:
-            state["topiq"] = rider_out["quality"]
-            state["quality_model"] = rider_names["quality"]
+        if face_model is not None or riders:
+            outputs, detections, rider_out = fused.score_images(
+                state["images"], face_pipeline=face_model, riders=riders)
+            if face_model is not None:
+                state["face_detections"] = detections
+            if "quality" in rider_out:
+                state["topiq"] = rider_out["quality"]
+                state["quality_model"] = rider_names["quality"]
+            if "samp" in rider_out:
+                state["samp"] = rider_out["samp"]
+        else:
+            outputs = fused.score_images(state["images"])
         state["tech"] = [self.scorer.technical.metrics_from_stats(o[3])
                          for o in outputs]
         state["phash"] = [o[2] for o in outputs]
@@ -207,6 +258,21 @@ class ChunkedMultiPassProcessor:
                 self.scorer.release_fused()
         self.phase_times["unload"] += time.time() - t0
 
+    # ----------------------------------------------------------- chunk logic
+
+    def _device_prepass(self, state):
+        """Technical statistics and pHash for a pass without clip."""
+        t0 = time.time()
+        fast = (bool(self.config.get_processing_settings().get(
+            "fast_color_harmony", False))
+            or self.config.speed_tier() == "fast")
+        device = self.models.device
+        stats = compute_batch_stats(state["images"], device,
+                                    hs_subsample=4 if fast else 1)
+        state["tech"] = [self.scorer.technical.metrics_from_stats(s) for s in stats]
+        state["phash"] = phash_batch(state["images"], device)
+        self.phase_times["inference"] += time.time() - t0
+
     # ---------------------------------------------------------------- public
 
     def process_directory(self, paths, verbose=True):
@@ -217,6 +283,8 @@ class ChunkedMultiPassProcessor:
         """
         from concurrent.futures import ThreadPoolExecutor
 
+        if self.passes is None:
+            self.detect_and_configure(verbose=verbose)
         reporter = MetricsReporter(len(paths), label="multi-pass scan")
         self.monitor.chunk_size = self.chunk_size
         self.monitor.start()
@@ -253,12 +321,15 @@ class ChunkedMultiPassProcessor:
             return 0
         n = len(ok)
         state = {"paths": ok, "images": images, "pils": pils,
-                 "aesthetics": [(None, None)] * n, "topiq": None}
-        if not any("clip" in group for group in self.passes):
-            raise ValueError(f"passes {self.passes} have no clip member: every "
-                             f"ported pass runs the fused clip pass")
+                 "aesthetics": [(None, None)] * n, "faces": [None] * n,
+                 "topiq": None, "samp": None}
+        uses_clip = any("clip" in group for group in self.passes)
+        if not uses_clip:
+            self._device_prepass(state)
         multiple_passes = len(self.passes) > 1
         for group in self.passes:
+            # the fused pass runs inside its bin-packed group, so its device
+            # share is resident only while that group runs
             if "clip" in group:
                 self._run_fused_clip_pass(group, state)
             self._run_pass_group([m for m in group if m != "clip"], state)
@@ -287,9 +358,11 @@ class ChunkedMultiPassProcessor:
         for i, path in enumerate(ok):
             rows.append(self.scorer.assemble_row(
                 path, images[i], pils[i], exif.get(path, {}), state["tech"][i],
-                state["phash"][i], state["aesthetics"][i], tag_lists[i],
+                state["phash"][i], state["aesthetics"][i], state["faces"][i],
+                tag_lists[i],
                 quality_score=None if state["topiq"] is None else state["topiq"][i],
                 quality_model=state.get("quality_model"),
+                samp_result=None if state["samp"] is None else state["samp"][i],
                 thumbnail=thumbs[i]))
         self.phase_times["aggregate"] += time.time() - t0
 
@@ -299,14 +372,14 @@ class ChunkedMultiPassProcessor:
         return n
 
     def run_single_pass(self, paths, pass_name, verbose=True):
-        """--pass quality|embeddings|tags over paths.
+        """--pass quality|tags|composition|faces|embeddings over paths.
 
         Existing rows only have the pass's own columns (plus the
         always-recomputed prepass columns) overwritten; aggregates and
         categories then recompute from the merged rows."""
-        if pass_name not in PORTED_PASSES:
-            raise NotImplementedError(
-                f"pass '{pass_name}' is not ported yet (ported: {PORTED_PASSES})")
+        if pass_name not in PASS_NAMES:
+            raise ValueError(f"unknown pass '{pass_name}' "
+                             f"(choose from {sorted(PASS_NAMES)})")
         self.selected_models = list(PASS_NAMES[pass_name])
         self.passes = self.models.group_passes(self.selected_models)
         if verbose:

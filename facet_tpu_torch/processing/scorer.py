@@ -1,12 +1,13 @@
 """Facet: the scoring engine, on the port.
 
 Counterpart of ``facet_tpu/processing/scorer.py`` for the methods the
-``--pass`` scans run: the fused scorer, the CLIP tagger, row assembly (the
-aggregate is computed last, from every model output), one-transaction batch
-persistence, the aggregate recompute over stored rows, the already-scanned
-set and the tag backfill from stored embeddings. Row assembly, persistence
-and the recompute are the JAX package's code, carried over; the device
-parts are the port's.
+default scan and the ``--pass`` scans run: the fused scorer, the CLIP
+tagger, row assembly (the aggregate is computed last, from every model
+output, SAMP-Net's composition and the face block included),
+one-transaction batch persistence with the ``faces`` table, the aggregate
+recompute over stored rows, the already-scanned set and the tag backfill
+from stored embeddings. Row assembly, persistence and the recompute are
+the JAX package's code, carried over; the device parts are the port's.
 
 Host code (database, config, thumbnails, tags, the scoring brain and the
 composition analyzer) comes from the port's own copies of the JAX package's
@@ -127,14 +128,15 @@ class Facet:
     # --------------------------------------------------------------- scoring
 
     def assemble_row(self, path, image, pil, exif, tech, phash,
-                     aesthetic_pair, tag_hits, quality_score=None,
-                     quality_model=None, thumbnail=None):
+                     aesthetic_pair, faces, tag_hits, quality_score=None,
+                     quality_model=None, samp_result=None, thumbnail=None):
         """Build one photos row, computing the aggregate LAST so every model
         output influences it. When a quality (NR-IQA) model ran, its score
         replaces the CLIP aesthetic in the aggregate, as in the reference
-        (processing/scorer.py:1755-1765 update_quality_scores). The ported
-        passes run no face detector and no SAMP-Net, so the face columns take
-        their no-face values and composition is the rule-based analyzer's."""
+        (processing/scorer.py:1755-1765 update_quality_scores); a SAMP-Net
+        result replaces the rule-based comp_score the same way. ``faces``
+        is the face pipeline's photo-level dict (None when it did not run);
+        its per-face rows ride along under ``_faces``."""
         h, w = image.shape[:2]
         aesthetic, embedding = aesthetic_pair
         if quality_score is not None:
@@ -147,16 +149,40 @@ class Facet:
         m["shutter_speed"] = exif.get("shutter_speed")
         m["focal_length"] = exif.get("focal_length")
         m["tags"] = tags_to_string(tag_hits)
-        m.update({"face_count": 0, "face_quality": None, "eye_sharpness": None,
-                  "face_sharpness": None, "face_ratio": 0.0, "is_blink": 0,
-                  "face_confidence": None, "raw_eye_sharpness": None,
-                  "is_group_portrait": 0})
 
-        comp = self.composition.analyze(image, None)
-        m["comp_score"] = CompositionAnalyzer.integrate_leading_lines(
-            comp["score"], comp["leading_lines_score"], False)
-        m["power_point_score"] = comp["power_point_score"]
-        m["leading_lines_score"] = comp["leading_lines_score"]
+        group_min = self.config.get_face_detection_settings().get("min_faces_for_group", 4)
+        if faces:
+            m.update({
+                "face_count": faces["face_count"],
+                "face_quality": faces["face_quality"],
+                "eye_sharpness": faces["eye_sharpness"],
+                "face_sharpness": faces["face_sharpness"],
+                "face_ratio": faces["face_ratio"],
+                "is_blink": faces["is_blink"],
+                "face_confidence": faces.get("confidence"),
+                "raw_eye_sharpness": faces.get("raw_eye_sharpness"),
+            })
+            m["is_group_portrait"] = 1 if faces["face_count"] >= group_min else 0
+            face_bbox = faces.get("combined_bbox")
+        else:
+            m.update({"face_count": 0, "face_quality": None, "eye_sharpness": None,
+                      "face_sharpness": None, "face_ratio": 0.0, "is_blink": 0,
+                      "face_confidence": None, "raw_eye_sharpness": None,
+                      "is_group_portrait": 0})
+            face_bbox = None
+
+        composition_pattern = None
+        if samp_result is not None:
+            m["comp_score"] = samp_result["score"]
+            m["power_point_score"] = samp_result.get("power_point_score")
+            m["leading_lines_score"] = None
+            composition_pattern = samp_result.get("pattern")
+        else:
+            comp = self.composition.analyze(image, face_bbox)
+            m["comp_score"] = CompositionAnalyzer.integrate_leading_lines(
+                comp["score"], comp["leading_lines_score"], bool(face_bbox))
+            m["power_point_score"] = comp["power_point_score"]
+            m["leading_lines_score"] = comp["leading_lines_score"]
 
         m["isolation_bonus"] = 1.0
         aggregate, category = calculate_aggregate(m, self.config)
@@ -224,15 +250,16 @@ class Facet:
             "topiq_score": quality_score,
             "composition_explanation": None,
             "scoring_model": scoring_model,
-            "composition_pattern": None,
+            "composition_pattern": composition_pattern,
             "category": category,
+            "_faces": faces["rows"] if faces else [],
         }
         return row
 
     # ------------------------------------------------------------ persistence
 
-    def save_photos_batch(self, rows, update_only):
-        """Single-transaction batch insert + tag sync.
+    def save_photos_batch(self, rows, update_only=None):
+        """Single-transaction batch insert, face rows and tag sync.
 
         Uses an UPSERT, NOT the reference's INSERT OR REPLACE
         (processing/scorer.py:1621): REPLACE deletes the conflicting row
@@ -243,25 +270,40 @@ class Facet:
         deliberate divergence, pinned in tests/test_db.py). Column values
         written are identical to REPLACE semantics.
 
-        update_only: iterable of column names — an EXISTING row only has
-        those columns overwritten (single-pass semantics: models that did
-        not run must not clobber stored scores); new rows insert in full.
+        update_only: optional iterable of column names — an EXISTING row then
+        only has those columns overwritten (single-pass semantics: models
+        that did not run must not clobber stored scores); new rows insert in
+        full.
         """
         if not rows:
             return 0
         cols = ", ".join(ROW_COLUMNS)
         placeholders = ", ".join("?" for _ in ROW_COLUMNS)
-        keep = set(update_only)
-        writable = [c for c in ROW_COLUMNS if c != "path" and c in keep]
+        writable = [c for c in ROW_COLUMNS if c != "path"]
+        if update_only is not None:
+            keep = set(update_only)
+            writable = [c for c in writable if c in keep]
         sets = ", ".join(f"{c} = excluded.{c}" for c in writable)
         sql = (f"INSERT INTO photos ({cols}) VALUES ({placeholders}) "
                f"ON CONFLICT(path) DO UPDATE SET {sets}")
-        sync_tags = "tags" in keep
+        sync_tags = update_only is None or "tags" in set(update_only)
         with get_connection(self.db_path) as conn:
             for row in rows:
                 conn.execute(sql, [row.get(c) for c in ROW_COLUMNS])
                 if sync_tags:
                     sync_photo_tags(conn, row["path"], row.get("tags"))
+                faces = row.get("_faces") or []
+                if faces:
+                    conn.execute("DELETE FROM faces WHERE photo_path = ?", (row["path"],))
+                    conn.executemany(
+                        "INSERT OR REPLACE INTO faces (photo_path, face_index, embedding,"
+                        " bbox_x1, bbox_y1, bbox_x2, bbox_y2, confidence,"
+                        " face_thumbnail, landmark_2d_106)"
+                        " VALUES (?, ?, ?, ?, ?, ?, ?, ?, ?, ?)",
+                        [(row["path"], f["face_index"], f["embedding"],
+                          f["bbox"][0], f["bbox"][1], f["bbox"][2], f["bbox"][3],
+                          f["confidence"], f.get("thumbnail"), f.get("landmarks"))
+                         for f in faces])
         return len(rows)
 
     def update_columns(self, updates):

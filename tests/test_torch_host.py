@@ -178,3 +178,91 @@ def test_thumbnail_and_tag_utils_match():
     assert Image.open(io.BytesIO(tthumb(pil, 64, 80))).size[0] <= 64
     for tags in ([], ["a"], ["landscape", "mountain", "sky"]):
         assert ttags(tags) == jtags(tags)
+
+
+def _detections(rng, n):
+    """n candidate rows of one image: scores descending from 0.95, boxes
+    clustered so that NMS suppresses some, five keypoints each."""
+    top = np.sort(rng.uniform(0.3, 0.95, n))[::-1].astype(np.float32)
+    centers = rng.uniform(20, 100, (n, 2))[rng.integers(0, 4, n)]
+    half = rng.uniform(8, 30, (n, 2))
+    boxes = np.concatenate([centers - half, centers + half], 1).astype(np.float32)
+    kps = (centers[:, None, :] + rng.normal(0, 5, (n, 5, 2))).astype(np.float32)
+    return top, boxes, kps
+
+
+def test_face_decode_helpers_match():
+    """topk_to_detections, nms and umeyama_similarity: the port's numpy
+    copies return what facet_tpu's do."""
+    from facet_tpu.models import face_models as jfm
+    from facet_tpu_torch.models import face_models as tfm
+
+    rng = np.random.default_rng(7)
+    top, boxes, kps = zip(*(_detections(rng, 24) for _ in range(3)))
+    top, boxes, kps = np.stack(top), np.stack(boxes), np.stack(kps)
+    want = jfm.topk_to_detections(top, boxes, kps, score_threshold=0.5)
+    got = tfm.topk_to_detections(top, boxes, kps, score_threshold=0.5)
+    assert [len(d) for d in got] == [len(d) for d in want] and sum(map(len, want)) > 3
+    for g_img, w_img in zip(got, want):
+        for g, w in zip(g_img, w_img):
+            assert g[0] == w[0]
+            np.testing.assert_array_equal(g[1], w[1])
+            np.testing.assert_array_equal(g[2], w[2])
+        kept_g, kept_w = tfm.nms(g_img), jfm.nms(w_img)
+        assert [d[0] for d in kept_g] == [d[0] for d in kept_w]
+        assert 0 < len(kept_w) < len(w_img)
+    for src in (rng.uniform(0, 200, (5, 2)), rng.uniform(0, 200, (5, 2)) * [-1, 1]):
+        src = src.astype(np.float32)
+        np.testing.assert_array_equal(tfm.umeyama_similarity(src, tfm.ARCFACE_DST),
+                                      jfm.umeyama_similarity(src, jfm.ARCFACE_DST))
+
+
+def test_samp_results_match():
+    """SAMP-Net's raw heads -> score dicts: the 0-10 rescale, the dominant
+    pattern and power_point_score."""
+    from facet_tpu.models.samp_net import SAMPComposition
+    from facet_tpu_torch.models.samp_net import to_results
+
+    rng = np.random.default_rng(8)
+    pw = rng.normal(0, 2, (4, 8)).astype(np.float32)
+    attrs = rng.uniform(0, 1, (4, 6)).astype(np.float32)
+    dist = rng.dirichlet(np.ones(5), 4).astype(np.float32)
+    assert to_results(pw, attrs, dist) == SAMPComposition._to_results(None, pw, attrs, dist)
+
+
+def test_face_aggregate_matches(configs, monkeypatch):
+    """A photo's faces -> the photo-level face dict and the faces rows
+    (quality, eye and face sharpness, blink, ratio, combined box, JPEG
+    thumbnails): the port's host arithmetic against facet_tpu's."""
+    monkeypatch.setenv("FACET_DISABLE_DP", "1")
+    from facet_tpu.models import face_pipeline as jfp
+    from facet_tpu_torch.models import face_pipeline as tfp
+    from facet_tpu_torch.models.face_models import IResNet, LandmarkNet
+    from facet_tpu_torch.models.scrfd import SCRFD
+
+    jcfg, tcfg = configs
+    rng = np.random.default_rng(9)
+    yy, xx = np.mgrid[0:120, 0:160]
+    image = np.clip(rng.uniform(0, 255, 3) + 0.7 * xx[..., None] - 0.4 * yy[..., None]
+                    + rng.normal(0, 25, (120, 160, 3)), 0, 255).astype(np.uint8)
+    faces = []
+    for score, (x1, y1) in zip((0.93, 0.81, 0.77), ((10.4, 12.7), (70.2, 30.9), (-5.5, 80.1))):
+        bbox = np.array([x1, y1, x1 + 46.3, y1 + 52.8], np.float32)
+        lmk = (np.array([x1 + 23, y1 + 26]) + rng.normal(0, 9, (106, 2))).astype(np.float32)
+        faces.append({"det": {"score": score, "bbox": bbox, "kps": lmk[:5]},
+                      "embedding": rng.normal(0, 1, 512).astype(np.float32),
+                      "landmarks": lmk})
+    want_pipe = jfp.FacePipeline(None, None, None, config=jcfg)
+    got_pipe = tfp.FacePipeline(SCRFD(), LandmarkNet(), IResNet(), "cpu", tcfg)
+    want, got = want_pipe._aggregate(image, faces), got_pipe._aggregate(image, faces)
+    assert got == want
+    assert got["face_count"] == 3 and all(r["thumbnail"] for r in got["rows"])
+    assert tfp.EMPTY_RESULT == jfp.EMPTY_RESULT
+    assert tfp.average_ear(faces[0]["landmarks"]) == jfp.average_ear(faces[0]["landmarks"])
+    np.testing.assert_array_equal(got_pipe._align_crop(image, faces[1]["det"]["kps"]),
+                                  want_pipe._align_crop(image, faces[1]["det"]["kps"]))
+    (g_crop, (g_center, g_size)) = got_pipe._landmark_crop(image, faces[2]["det"]["bbox"])
+    (w_crop, (w_center, w_size)) = want_pipe._landmark_crop(image, faces[2]["det"]["bbox"])
+    np.testing.assert_array_equal(g_crop, w_crop)
+    np.testing.assert_array_equal(g_center, w_center)
+    assert g_size == w_size

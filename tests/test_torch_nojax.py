@@ -3,7 +3,8 @@
 A subprocess refuses every import of jax, jaxlib, flax, optax and
 facet_tpu, imports facet_tpu_torch and every module under it, and runs a
 2-image ``--pass quality`` scan on the CPU (``--device cpu``) in both stats
-configurations. No file of the package, and not chip_smoke.py, may import
+configurations, then the default multi-pass scan under the "16gb" profile
+(CLIP, TOPIQ, SAMP-Net and the faces member, in the fast tier). No file of the package, and not chip_smoke.py, may import
 any of those roots or name the facet_tpu directory. Without a card, and
 without an explicit request for the CPU, the CLI and ModelManager fail.
 """
@@ -51,6 +52,8 @@ cfg["models"]["clip"]["architecture"] = {"image_size": 28, "patch_size": 14,
                                          "width": 32, "layers": 1, "heads": 2,
                                          "projection_dim": 768}
 json.dump(cfg, open("cfg.json", "w"))
+cfg["models"]["vram_profile"] = "16gb"
+json.dump(cfg, open("cfg16.json", "w"))
 
 # TOPIQ at 128 px instead of 384 (exact tier) or 256 (fast tier): its C2
 # level (1024 queries over 256 keys) still passes the kernel's gate, at a
@@ -63,16 +66,24 @@ topiq.TOPIQConfig = functools.partial(topiq.TOPIQConfig, input_size=128)
 from facet_tpu_torch.__main__ import main
 rcs, rows = [], []
 # the default stats configuration in the fast tier, then pallas_fused in the
-# exact tier (in the fast tier it runs the default configuration)
-for db, impl, tier in (("scan.db", "pallas", "fast"), ("fused.db", "pallas_fused", "exact")):
+# exact tier (in the fast tier it runs the default configuration), then the
+# default scan in the fast tier (SCRFD on its 448 px canvas)
+for db, impl, tier, scan in (("scan.db", "pallas", "fast", ["--pass", "quality"]),
+                             ("fused.db", "pallas_fused", "exact", ["--pass", "quality"]),
+                             ("default.db", "pallas", "fast", [])):
     os.environ["FACET_ENTROPY_IMPL"] = impl
-    rcs.append(main(["photos", "--pass", "quality", "--db", db, "--config", "cfg.json",
+    rcs.append(main(["photos", *scan, "--db", db,
+                     "--config", "cfg16.json" if not scan else "cfg.json",
                      "--speed-tier", tier, "--device", "cpu"]))
     rows.append(sqlite3.connect(db).execute(
         "SELECT topiq_score, phash, raw_color_entropy, aggregate FROM photos"
         " ORDER BY path").fetchall())
+default = sqlite3.connect("default.db").execute(
+    "SELECT composition_pattern, face_count, clip_embedding IS NOT NULL FROM photos"
+    " ORDER BY path").fetchall()
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
-print("RESULT " + json.dumps({"rcs": rcs, "modules": names, "rows": rows, "leaked": leaked}))
+print("RESULT " + json.dumps({"rcs": rcs, "modules": names, "rows": rows, "leaked": leaked,
+                              "default": default}))
 '''
 
 
@@ -85,16 +96,22 @@ def test_port_runs_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr[-4000:]
     line = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")][-1]
     result = json.loads(line[len("RESULT "):])
-    assert result["rcs"] == [0, 0]
+    assert result["rcs"] == [0, 0, 0]
     assert result["leaked"] == []
     assert "facet_tpu_torch.ops.entropy" in result["modules"]
     assert "facet_tpu_torch.ops.fused_stats" in result["modules"]
+    assert "facet_tpu_torch.models.face_pipeline" in result["modules"]
     assert "facet_tpu_torch.__main__" in result["modules"]
     for rows in result["rows"]:
         assert len(rows) == 2
         assert all(v is not None for row in rows for v in row)
-    # the two scans share the integer statistics, hence the pHash
-    assert [r[1] for r in result["rows"][0]] == [r[1] for r in result["rows"][1]]
+    # the scans share the integer statistics, hence the pHash
+    for rows in result["rows"][1:]:
+        assert [r[1] for r in result["rows"][0]] == [r[1] for r in rows]
+    # the default scan ran SAMP-Net and the faces member (whose fallback
+    # SCRFD finds no face: its reg scales are zero) beside CLIP and TOPIQ
+    assert [tuple(r) for r in result["default"]] == [(r[0], 0, 1) for r in result["default"]]
+    assert all(r[0] is not None for r in result["default"])
 
 
 def _imported_roots(path):

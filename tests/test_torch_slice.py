@@ -20,6 +20,29 @@ columns within the entropy bound (atol=rtol=1e-5); topiq_score (stored
 rounded to 0.01) within 1e-3; the CLIP embedding and the CLIP aesthetic,
 which both packages compute in bf16 (the config has no knob for it),
 within the bounds measured here and stated below; category identical.
+
+The default multi-pass scan under the "16gb" profile (clip, topiq,
+samp_net, insightface in one pass group: SCRFD's detection, TOPIQ and
+SAMP-Net riding the fused pass), then ``--pass composition`` and ``--pass
+faces``, run in both packages on the three photos of one shape, each into
+a fresh database, with the members built through ``ModelManager.register``
+from the same flax trees: SAMP-Net's and U2-Net-P's fallback init (seeds
+20 and 21), and SCRFD (on a 160 px canvas), the landmark net and ArcFace
+from theirs with random BatchNorm statistics and SCRFD's reg scales at 1
+(tests/test_torch_faces.py says why). The trees come from the port's
+``params.fallback_values``, which tests/test_torch_params.py holds bit for
+bit to the JAX package's ``fallback_init``, so no flax init is traced
+here. Besides the columns above: SAMP-Net's
+comp_score and power_point_score (stored rounded to 0.01) within 1e-3 and
+its pattern identical; face_count, is_blink and is_group_portrait
+identical, the other face columns within 1e-3 (relative for the Laplacian
+variances); the ``faces`` rows with identical boxes, indices and JPEG
+thumbnails, confidence within 1e-5, the 512 embedding values within atol
+1e-4 / rtol 1e-3 and the 106x2 landmarks within 1e-3 px. A photo with a
+detection decision within DECISION_TOL of a threshold (the 0.5 and 0.7
+score thresholds, the 64th score, the 30 px face size, the integer a box
+corner is truncated to) in the port's own detection has its face columns
+reported, not compared.
 """
 
 import json
@@ -44,6 +67,12 @@ FROM_INTEGER_STATS = ("tech_sharpness", "raw_sharpness_variance",
                       "isolation_bonus")
 FROM_ENTROPY = ("raw_color_entropy", "color_score")
 SCORES = ("topiq_score", "quality_score", "aesthetic", "aggregate")
+FACE_EXACT = ("face_count", "is_blink", "is_group_portrait")
+FACE_FLOAT = ("face_quality", "eye_sharpness", "face_sharpness", "face_ratio",
+              "face_confidence", "raw_eye_sharpness")
+SAMP_SCORES = ("comp_score", "power_point_score")
+DET_SIZE = 160
+DECISION_TOL = 1e-4
 
 
 @pytest.fixture(scope="module")
@@ -172,15 +201,24 @@ def embeddings_runs(request, photos):
         mp.undo()
 
 
-def _assert_rows_match(got, want, scoring_model="topiq"):
+def _assert_rows_match(got, want, scoring_model="topiq", samp=False, unsure=()):
     """``scoring_model`` "clip-mlp": the rows' aesthetic is the CLIP
-    aesthetic, held at the bf16 bound."""
+    aesthetic, held at the bf16 bound. ``samp``: composition comes from
+    SAMP-Net. ``unsure``: paths whose face columns (and the aggregate and
+    category they feed) are not compared."""
     assert [r["path"] for r in got] == [r["path"] for r in want]
     assert set(got[0]) == set(want[0])
     for g, w in zip(got, want):
         assert g["scoring_model"] == scoring_model
         for col in w:
-            if col in FROM_INTEGER_STATS and w[col] is not None:
+            if g["path"] in unsure and col in FACE_EXACT + FACE_FLOAT + (
+                    "aggregate", "category"):
+                continue
+            if col in FACE_FLOAT and w[col] is not None:
+                assert g[col] == pytest.approx(w[col], rel=1e-3, abs=1e-3), col
+            elif samp and col in SAMP_SCORES:
+                assert g[col] == pytest.approx(w[col], abs=1e-3), col
+            elif col in FROM_INTEGER_STATS and w[col] is not None:
                 assert g[col] == pytest.approx(w[col], abs=1e-6), col
             elif col in FROM_ENTROPY:
                 assert g[col] == pytest.approx(w[col], abs=1e-5, rel=1e-5), col
@@ -188,7 +226,7 @@ def _assert_rows_match(got, want, scoring_model="topiq"):
                 assert g[col] == pytest.approx(w[col], abs=AESTHETIC_BF16_TOL), col
             elif col in SCORES:
                 assert g[col] == pytest.approx(w[col], abs=1e-3), col
-            elif col == "clip_embedding":
+            elif col == "clip_embedding" and w[col] is not None:
                 diff = np.abs(np.frombuffer(g[col], np.float32)
                               - np.frombuffer(w[col], np.float32))
                 assert diff.max() <= EMBEDDING_BF16_TOL
@@ -231,11 +269,14 @@ def test_clip_aesthetic_bf16_bound(runs, photos):
         assert g[2] == w[2]                       # pHash
 
 
-def test_cli_quality_pass_and_refusals(photos, tmp_path, capsys):
-    """python -m facet_tpu_torch <dir> --pass quality writes every row; the
-    default scan, --single-pass, unported passes and other photos.py modes
-    are refused with a non-zero exit."""
+def test_cli_quality_pass_and_refusals(photos, tmp_path, capsys, monkeypatch):
+    """python -m facet_tpu_torch <dir> --pass embeddings writes every row;
+    the default scan under ``vram_profile: auto`` on a card of 20 GB or more
+    (the "24gb" profile, which tags with the unported VLM), --single-pass,
+    --dry-run and other photos.py modes are refused with a non-zero exit
+    that names what they need."""
     from facet_tpu_torch.__main__ import main
+    from facet_tpu_torch.models import model_manager
 
     _, files, cfg_path = photos
     photo_dir = os.path.dirname(files[0])
@@ -243,12 +284,19 @@ def test_cli_quality_pass_and_refusals(photos, tmp_path, capsys):
     args = ["--db", db, "--config", cfg_path, "--device", "cpu"]
     assert main([photo_dir, "--pass", "embeddings", "--limit", "2"] + args) == 0
     assert len(_rows(db)) == 2
-    assert main([photo_dir] + args) == 2
-    assert "insightface" in capsys.readouterr().err
+    capsys.readouterr()
+    with monkeypatch.context() as m:
+        m.setattr(model_manager, "detect_device_memory_gb", lambda device: 80.0)
+        assert main([photo_dir] + args) == 2
+    err = capsys.readouterr().err
+    assert "vlm_tagger" in err and "'24gb'" in err
     assert main([photo_dir, "--single-pass"] + args) == 2
-    assert main([photo_dir, "--pass", "faces"] + args) == 2
+    assert "BatchProcessor" in capsys.readouterr().err
+    assert main([photo_dir, "--dry-run"] + args) == 2
+    assert "score_paths" in capsys.readouterr().err
     assert main([photo_dir, "--recompute-average"] + args) == 2
     assert "not yet ported" in capsys.readouterr().err
+    assert len(_rows(db)) == 2
 
 
 def test_embeddings_pass_attention_schedules(embeddings_runs):
@@ -258,3 +306,188 @@ def test_embeddings_pass_attention_schedules(embeddings_runs):
     2.5e-3 and 4.6e-4), every other column as in the quality pass."""
     _, want, got = embeddings_runs
     _assert_rows_match(got, want, scoring_model="clip-mlp")
+
+
+# ------------------------------------------- the default scan (16gb profile)
+
+
+def _member_trees():
+    """{member: flax trees} for samp_net (SAMP-Net, U2-Net-P) and
+    insightface (SCRFD at DET_SIZE with reg scales 1, landmarks, ArcFace)."""
+    from test_torch_params import fallback_tree
+
+    from facet_tpu_torch.models import face_models, samp_net, scrfd, u2netp
+
+    det = fallback_tree(scrfd.SCRFD(scrfd.SCRFDConfig(input_size=DET_SIZE)), 10, 1)
+    for level in range(3):
+        det["params"]["head"][f"scale{level}"] = np.float32(1.0)
+    return {"samp_net": (fallback_tree(samp_net.SAMPNet(), 20),
+                         fallback_tree(u2netp.U2NETP(), 21)),
+            "insightface": (det, fallback_tree(face_models.LandmarkNet(), 11, 2),
+                            fallback_tree(face_models.IResNet(), 12, 3))}
+
+
+def _faces_rows(db):
+    conn = sqlite3.connect(db)
+    conn.row_factory = sqlite3.Row
+    rows = [dict(r) for r in conn.execute(
+        "SELECT photo_path, face_index, embedding, bbox_x1, bbox_y1, bbox_x2, bbox_y2,"
+        " confidence, face_thumbnail, landmark_2d_106 FROM faces"
+        " ORDER BY photo_path, face_index")]
+    conn.close()
+    return rows
+
+
+def _unsure_photos(pipeline, files):
+    """Photos with a face decision within DECISION_TOL of a threshold in the
+    port's own detection -> {path: what is near}: a score near 0.5 or 0.7,
+    the 64th and 65th scores near each other, or a box that can pass the
+    filters with a side near 30 px or a corner near an integer (boxes are
+    held to 1e-4 relative)."""
+    import torch
+
+    from facet_tpu_torch.utils.image_loading import load_image
+
+    unsure = {}
+    pipeline.top_k, pipeline._detect_programs = 65, {}
+    try:
+        for path in files:
+            img = np.asarray(load_image(path), np.uint8)
+            run, scale = pipeline._detect_program(*img.shape[:2])
+            top, boxes, _ = (t.numpy()[0] for t in run(torch.from_numpy(img.copy()[None])))
+            near = [f"score {s:.6f}" for s in top[:64]
+                    if min(abs(s - 0.5), abs(s - 0.7)) <= DECISION_TOL]
+            if top[63] >= 0.5 - DECISION_TOL and top[63] - top[64] <= DECISION_TOL:
+                near.append(f"64th score {top[63]:.6f}, 65th {top[64]:.6f}")
+            for s, box in zip(top[:64], boxes[:64] / scale):
+                size = np.array([box[2] - box[0], box[3] - box[1]])
+                tol = 1e-4 * np.abs(box).max() + 1e-3
+                if s < 0.7 - DECISION_TOL or (size < 30 - tol).any():
+                    continue
+                if (np.abs(size - 30) <= tol).any() or (
+                        np.abs(box - np.round(box)) <= tol).any():
+                    near.append(f"box {np.round(box, 4).tolist()}")
+            if near:
+                unsure[path] = near
+    finally:
+        pipeline.top_k, pipeline._detect_programs = 64, {}
+    return unsure
+
+
+@pytest.fixture(scope="module")
+def scans16(photos):
+    """The default scan, --pass composition and --pass faces of both
+    packages under the "16gb" profile -> {scan: (jax rows, jax faces rows,
+    port rows, port faces rows)}, and the port's unsure photos."""
+    root, files, cfg_path = photos
+    cfg = json.loads(open(cfg_path).read())
+    cfg["models"]["vram_profile"] = "16gb"
+    cfg16 = str(root / "scoring_config_16gb.json")
+    with open(cfg16, "w") as fh:
+        json.dump(cfg, fh)
+    mp = pytest.MonkeyPatch()
+    mp.setenv("FACET_ENTROPY_IMPL", "pallas")
+    mp.setenv("FACET_TOPIQ_ATTN", "pallas")
+    mp.setenv("FACET_DISABLE_DP", "1")
+    mp.chdir(root)          # no pretrained_models/ here: fallback params
+    try:
+        from facet_tpu.config.scoring_config import ScoringConfig as JConfig
+        from facet_tpu.models.checkpoints import fallback_init, sds
+        from facet_tpu.models.face_pipeline import FacePipeline as JFacePipeline
+        from facet_tpu.models.samp_net import SAMPComposition as JSAMP
+        from facet_tpu.models.scrfd import SCRFD_10G
+        from facet_tpu.models.topiq import TOPIQConfig, TOPIQNet, TOPIQScorer
+        from facet_tpu.processing.multi_pass import ChunkedMultiPassProcessor as JProcessor
+        from facet_tpu.processing.scorer import Facet as JFacet
+        from facet_tpu_torch import params as P
+        from facet_tpu_torch.config.scoring_config import ScoringConfig
+        from facet_tpu_torch.models import face_models, samp_net, scrfd, u2netp
+        from facet_tpu_torch.models import topiq as ttopiq
+        from facet_tpu_torch.models.face_pipeline import FacePipeline
+        from facet_tpu_torch.processing.multi_pass import ChunkedMultiPassProcessor
+        from facet_tpu_torch.processing.scorer import Facet
+
+        from dataclasses import replace
+
+        trees = _member_trees()
+        faces, samp = trees["insightface"], trees["samp_net"]
+        files = [f for f in files if os.path.basename(f).startswith("wide_")]
+        jcfg = TOPIQConfig(input_size=128)
+        jfacet = JFacet(str(root / "jax16_default.db"), JConfig(cfg16))
+        jfacet.models.register("topiq", lambda config, cached: TOPIQScorer(
+            fallback_init(TOPIQNet(jcfg), sds((1, 128, 128, 3)), seed=30), jcfg))
+        jfacet.models.register("samp_net", lambda config, cached: JSAMP(*samp))
+        jfacet.models.register("insightface", lambda config, cached: JFacePipeline(
+            *faces, config=config, det_config=replace(SCRFD_10G, input_size=DET_SIZE)))
+        tfacet = Facet(str(root / "torch16_default.db"), ScoringConfig(cfg16), device="cpu")
+        tfacet.models.register("topiq", lambda config, cached: ttopiq.TOPIQScorer(
+            P.fallback_init(ttopiq.TOPIQNet(ttopiq.TOPIQConfig(input_size=128)),
+                            seed=30), "cpu"))
+        tfacet.models.register("samp_net", lambda config, cached: samp_net.SAMPComposition(
+            P.bridge(samp_net.SAMPNet(), samp[0]), P.bridge(u2netp.U2NETP(), samp[1]), "cpu"))
+        tfacet.models.register("insightface", lambda config, cached: FacePipeline(
+            P.bridge(scrfd.SCRFD(scrfd.SCRFDConfig(input_size=DET_SIZE)), faces[0]),
+            P.bridge(face_models.LandmarkNet(), faces[1]),
+            P.bridge(face_models.IResNet(), faces[2]), "cpu", config))
+
+        JProcessor(jfacet).process_directory(files, verbose=False)
+        ChunkedMultiPassProcessor(tfacet).process_directory(files, verbose=False)
+        out = {}
+        for scan in ("default", "composition", "faces"):
+            jdb, tdb = str(root / f"jax16_{scan}.db"), str(root / f"torch16_{scan}.db")
+            if scan != "default":
+                JProcessor(JFacet(jdb, JConfig(cfg16), model_manager=jfacet.models)
+                           ).run_single_pass(files, scan, verbose=False)
+                ChunkedMultiPassProcessor(Facet(tdb, ScoringConfig(cfg16),
+                                                model_manager=tfacet.models)
+                                          ).run_single_pass(files, scan, verbose=False)
+            out[scan] = (_rows(jdb), _faces_rows(jdb), _rows(tdb), _faces_rows(tdb))
+        unsure = _unsure_photos(tfacet.models.load_model("insightface"), files)
+        yield out, unsure
+    finally:
+        mp.undo()
+
+
+def _assert_faces_match(got, want, unsure):
+    got = [r for r in got if r["photo_path"] not in unsure]
+    want = [r for r in want if r["photo_path"] not in unsure]
+    assert [(r["photo_path"], r["face_index"]) for r in got] == [
+        (r["photo_path"], r["face_index"]) for r in want]
+    for g, w in zip(got, want):
+        for col in ("bbox_x1", "bbox_y1", "bbox_x2", "bbox_y2", "face_thumbnail"):
+            assert g[col] == w[col], col
+        assert g["confidence"] == pytest.approx(w["confidence"], abs=1e-5)
+        emb = np.frombuffer(g["embedding"], np.float32)
+        assert emb.shape == (512,)
+        np.testing.assert_allclose(emb, np.frombuffer(w["embedding"], np.float32),
+                                   atol=1e-4, rtol=1e-3)
+        lmk = np.frombuffer(g["landmark_2d_106"], np.float32)
+        assert lmk.shape == (212,)
+        np.testing.assert_allclose(lmk, np.frombuffer(w["landmark_2d_106"], np.float32),
+                                   atol=1e-3)
+        assert g["face_thumbnail"][:2] == b"\xff\xd8"      # a JPEG
+
+
+@pytest.mark.parametrize("scan", ["default", "composition", "faces"])
+def test_default_scan_16gb_rows_and_faces(scans16, scan):
+    """The default scan and the composition and faces passes write facet_tpu's
+    rows and faces rows. The default scan fills every member's columns:
+    TOPIQ's score, SAMP-Net's composition (not the rule-based analyzer's),
+    the face columns and the faces table."""
+    out, unsure = scans16
+    want, want_faces, got, got_faces = out[scan]
+    if unsure:
+        print(f"face decisions within {DECISION_TOL} of a threshold, face columns not "
+              f"compared: {unsure}")
+    _assert_rows_match(got, want, scoring_model="topiq" if scan == "default" else None,
+                       samp=scan != "faces", unsure=set(unsure))
+    _assert_faces_match(got_faces, want_faces, unsure)
+    if scan != "faces":
+        assert all(r["composition_pattern"] is not None and r["leading_lines_score"] is None
+                   for r in got)
+    if scan != "composition":
+        assert got_faces and sum(r["face_count"] for r in got) == len(got_faces)
+        assert len({r["photo_path"] for r in got_faces} - set(unsure)) > 0
+    if scan == "default":
+        assert all(r[c] is not None for r in got for c in (
+            "topiq_score", "comp_score", "clip_embedding", "phash", "aggregate"))
