@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ab OTHER_TREE [CHECK ...]
+    python3 chip_smoke.py --probe
 
 Phases, in order; any failure exits non-zero and nothing is caught:
 
@@ -91,6 +92,20 @@ in a process of its own that builds that tree's kernels; the checks and
 timers are this file's, so both trees are measured alike. For a parent
 commit: ``mkdir -p build/parent && git archive <commit> | tar -x -C
 build/parent``.
+
+With ``--probe`` it builds the kernels and shows where the default scan
+(phase 5's configuration) spends its time, failing on no number: each
+rider's activation peak per image (TOPIQ, SAMP, SCRFD's detection, by
+``torch.cuda.max_memory_allocated``) beside the bytes per input pixel
+that its slice size budgets; then the scan over the smoke's photos three
+times on one engine: cold (every model built on first use), warm (models
+resident) and warm again under torch.profiler (device activity only).
+Each prints its wall time, images/s, the multi-pass processor's phase
+times and the host time of each stage (the fused pass with its riders,
+which ends in the chunk's one synchronize and fetch; the faces stage;
+row assembly; tagging; saving); the profiled run also the device's busy
+time (its kernels' and copies' times, one stream) as a share of its wall
+time, and the kernels that take most of it.
 """
 
 import contextlib
@@ -1365,6 +1380,139 @@ def ab_kernels(other, names=AB_CHECKS):
     return 0
 
 
+def host_timed(owner, name, totals):
+    """Wrap owner.name so that its host time adds up in totals[name]."""
+    fn = getattr(owner, name)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            totals[name] += time.perf_counter() - t0
+
+    setattr(owner, name, wrapper)
+
+
+def probe_run(processor, files, totals, label, gpu, profile=False):
+    """One default scan over files on a resident engine: wall time, images/s,
+    phase times and stage host times; under ``profile``, torch.profiler's
+    device activity too (busy share and the kernels that take most)."""
+    import collections
+
+    for key in totals:
+        totals[key] = 0.0
+    for key in processor.phase_times:
+        processor.phase_times[key] = 0.0
+    torch.cuda.synchronize()
+    prof = None
+    if profile:
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+        prof.__enter__()
+    t0 = time.perf_counter()
+    done = processor.process_directory(files, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if prof is not None:
+        prof.__exit__(None, None, None)
+    phases = ", ".join(f"{k} {v}" for k, v in processor.phase_times.items())
+    stages = ", ".join(f"{k} {v}" for k, v in totals.items())
+    phase("probe", f"[{label}] {done} photos in {wall} s: {done / wall} images/s ({gpu})")
+    phase("probe", f"[{label}] phases (s): {phases}")
+    phase("probe", f"[{label}] stages on the host's clock (s): {stages}")
+    if prof is None:
+        return
+    kernels = collections.Counter()
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if us > 0:
+            kernels[evt.key] += us / 1e6
+    busy = sum(kernels.values())
+    phase("probe", f"[{label}] device busy {busy} s of {wall} s wall: "
+                   f"{100 * busy / wall:.2f}% busy, {100 * (1 - busy / wall):.2f}% idle")
+    for name, sec in kernels.most_common(15):
+        phase("probe", f"[{label}]   {sec * 1e3:9.3f} ms  {name[:110]}")
+
+
+def probe_rider_memory(gpu):
+    """Each rider's activation peak per image at 1024x1536
+    (torch.cuda.max_memory_allocated over one call, batches of 1 and 8, the
+    slope), and that less the source copy's 24 bytes a source pixel, per
+    pixel of the member's input: the figure rider_slice_size budgets."""
+    from facet_tpu_torch.models import face_pipeline as fp
+    from facet_tpu_torch.models import samp_net, topiq
+
+    h, w = SCAN_SHAPES[0]
+    riders = {"TOPIQ": (lambda: topiq.TOPIQScorer.create(None, None, "cuda").rider(h, w)[0],
+                        topiq.TOPIQConfig().input_size, topiq.ACT_BYTES_PER_INPUT_PIXEL),
+              "SAMP": (lambda: samp_net.SAMPComposition.create(None, None, "cuda").rider(h, w)[0],
+                       samp_net.INPUT_SIZE, samp_net.ACT_BYTES_PER_INPUT_PIXEL),
+              "SCRFD": (lambda: fp.FacePipeline.create(None, None, "cuda")._detect_program(
+                  h, w)[0], fp.SCRFD_10G.input_size, fp.DET_ACT_BYTES_PER_INPUT_PIXEL)}
+    photos = torch.from_numpy(np.stack(synthetic_photos(8, h, w, seed=h * 11))).cuda()
+    for name, (make, size, budget) in riders.items():
+        run = make()
+        peaks = {}
+        with torch.no_grad():
+            for b in (1, 8):
+                run(photos[:b])                  # warm: cuDNN picks its algorithms
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                out = run(photos[:b])
+                torch.cuda.synchronize()
+                peaks[b] = torch.cuda.max_memory_allocated() - base
+                del out
+        per_image = (peaks[8] - peaks[1]) / 7
+        per_pixel = (per_image - 24 * h * w) / size ** 2
+        phase("probe", f"{name} rider at {size} px: activation peak {peaks[1]} B at batch "
+                       f"1, {peaks[8]} B at batch 8: {per_image:.0f} B an image, "
+                       f"{per_pixel:.1f} B per input pixel beyond the source copy "
+                       f"(budgeted {budget}) ({gpu})")
+        del run
+        torch.cuda.empty_cache()
+
+
+def probe(gpu):
+    """--probe: each rider's activation peak, then the default scan twice on
+    one engine over the smoke's photos: cold (every model built on first
+    use), warm (models resident) and warm again under torch.profiler."""
+    from facet_tpu_torch.config.default_config import write_default_config
+    from facet_tpu_torch.config.scoring_config import ScoringConfig
+    from facet_tpu_torch.models.face_pipeline import FacePipeline
+    from facet_tpu_torch.models.tagger import CLIPTagger
+    from facet_tpu_torch.processing import scorer as scorer_mod
+    from facet_tpu_torch.processing.device_pipeline import FusedScorer
+    from facet_tpu_torch.processing.multi_pass import ChunkedMultiPassProcessor
+
+    probe_rider_memory(gpu)
+    set_scrfd_reg_scale(SCRFD_REG_SCALE)
+    totals = {"score_images": 0.0, "analyze_batch": 0.0, "assemble_row": 0.0,
+              "tag_embedding_bytes": 0.0, "save_photos_batch": 0.0}
+    host_timed(FusedScorer, "score_images", totals)
+    host_timed(FacePipeline, "analyze_batch", totals)
+    host_timed(scorer_mod.Facet, "assemble_row", totals)
+    host_timed(scorer_mod.Facet, "save_photos_batch", totals)
+    host_timed(CLIPTagger, "tag_embedding_bytes", totals)
+    with tempfile.TemporaryDirectory() as tmp:
+        photo_dir = os.path.join(tmp, "photos")
+        os.makedirs(photo_dir)
+        files = sorted(write_photos(photo_dir))
+        cfg = os.path.join(tmp, "scoring_config.json")
+        write_default_config(cfg)
+        config = ScoringConfig(cfg)
+        config.config["models"]["vram_profile"] = "16gb"
+        facet = scorer_mod.Facet(os.path.join(tmp, "scan.db"), config, device="cuda")
+        processor = ChunkedMultiPassProcessor(facet)
+        processor.detect_and_configure(verbose=True)
+        probe_run(processor, files, totals, "cold", gpu)
+        probe_run(processor, files, totals, "warm", gpu)
+        probe_run(processor, files, totals, "warm, profiled", gpu, profile=True)
+    return 0
+
+
 def main():
     gpu = phase_device()
     phase_build()
@@ -1387,4 +1535,8 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ab"]:
         sys.exit(ab_kernels(sys.argv[2], sys.argv[3:] or AB_CHECKS))
+    if sys.argv[1:2] == ["--probe"]:
+        gpu = phase_device()
+        phase_build()
+        sys.exit(probe(gpu))
     sys.exit(main())

@@ -9,7 +9,9 @@ an error. A default scan whose profile selects a member that is not ported
 yet (the VLM tagger of the "24gb" profile, which ``vram_profile: auto``
 picks on a card of 20 GB or more) exits non-zero and names that member
 instead of silently scoring fewer; so do ``--single-pass`` and
-``--dry-run``, naming what they need. Every other ``photos.py`` mode exits
+``--dry-run``, naming what they need, and a scan that holds the faces
+member while a converted 2d106det landmark graph is installed (its runner
+is not ported), before any row is written. Every other ``photos.py`` mode exits
 with "not yet ported".
 """
 
@@ -110,10 +112,14 @@ def main(argv=None):
     print(f"found {len(files)} photos to process")
 
     processor = ChunkedMultiPassProcessor(scorer)
-    if args.pass_name:
-        processor.run_single_pass(files, args.pass_name)
-    else:
-        processor.process_directory(files)
+    try:
+        if args.pass_name:
+            processor.run_single_pass(files, args.pass_name)
+        else:
+            processor.process_directory(files)
+    except NotImplementedError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
 
     # post-scan: burst grouping + tag backfill from stored embeddings
     process_bursts(db_path, config)

@@ -47,14 +47,20 @@ from facet_tpu_torch.models.face_models import (
     umeyama_similarity,
 )
 from facet_tpu_torch.models.scrfd import SCRFD, SCRFD_10G, decode_topk
-from facet_tpu_torch.models.topiq import rider_slice_size
 from facet_tpu_torch.ops.precision import full_float32
 from facet_tpu_torch.ops.resize import resample_matrix
+from facet_tpu_torch.processing.device_pipeline import rider_slice_size
 
 # fast speed tier (processing.speed_tier: "fast"): 448 px detection canvas;
 # must stay a multiple of the largest anchor stride (32)
 FAST_TIER_DET_SIZE = 448
 LANDMARK_GRAPH = "landmark_106_graph"
+# Activation bytes of one image per pixel of the detection canvas (SCRFD
+# det_10g and its decode in f32), for the detection's slice size
+# (processing/device_pipeline.py:rider_slice_size): 96 measured at 640 px
+# on an H100 80GB HBM3 at 700 W (chip_smoke.py --probe), rounded up to a
+# power of two.
+DET_ACT_BYTES_PER_INPUT_PIXEL = 128
 
 LEFT_EYE = [35, 39, 37, 38, 41, 40]
 RIGHT_EYE = [89, 93, 91, 92, 95, 94]
@@ -151,7 +157,7 @@ class FacePipeline:
             nh, nw = int(round(h * scale)), int(round(w * scale))
             rows = torch.from_numpy(resample_matrix(h, nh, method="linear")).to(self.device)
             cols = torch.from_numpy(resample_matrix(w, nw, method="linear")).to(self.device)
-            cap = rider_slice_size(self.device, h, w, size)
+            cap = rider_slice_size(self.device, h, w, size, DET_ACT_BYTES_PER_INPUT_PIXEL)
 
             @torch.no_grad()
             def detect(batch_u8):

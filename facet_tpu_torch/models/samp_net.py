@@ -26,10 +26,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from facet_tpu_torch import params as P
-from facet_tpu_torch.models.topiq import rider_slice_size
 from facet_tpu_torch.models.u2netp import U2NETP
 from facet_tpu_torch.ops.precision import full_float32
 from facet_tpu_torch.ops.resize import resample_matrix
+from facet_tpu_torch.processing.device_pipeline import rider_slice_size
 
 COMPOSITION_PATTERNS = [
     "global", "horizontal", "vertical", "triangular",
@@ -44,6 +44,12 @@ PATTERN_KERNELS = [(2, 1), (1, 2), (2, 1), (2, 1), (2, 1), (2, 2), (2, 2), (3, 3
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 INPUT_SIZE = 224
+# Activation bytes of one image per pixel of the 224 px input (U2-Net-P and
+# SAMP-Net in f32), for the rider's slice size
+# (processing/device_pipeline.py:rider_slice_size): 1258 measured on an
+# H100 80GB HBM3 at 700 W (chip_smoke.py --probe), rounded up to a power
+# of two.
+ACT_BYTES_PER_INPUT_PIXEL = 2048
 
 
 # ---------------------------------------------------------------- backbone
@@ -340,7 +346,7 @@ class SAMPComposition:
         batch: ``run`` launches the program slice by slice and returns
         un-fetched outputs; ``finish`` takes them fetched, with the image
         count, and yields the score dicts."""
-        cap = rider_slice_size(self.device, h, w, INPUT_SIZE)
+        cap = rider_slice_size(self.device, h, w, INPUT_SIZE, ACT_BYTES_PER_INPUT_PIXEL)
 
         def run(dev):
             return [self.forward_u8(dev[i:i + cap]) for i in range(0, dev.shape[0], cap)]

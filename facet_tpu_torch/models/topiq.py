@@ -30,6 +30,7 @@ from facet_tpu_torch import params as P
 from facet_tpu_torch.ops import attention
 from facet_tpu_torch.ops.precision import full_float32
 from facet_tpu_torch.ops.resize import resample_matrix
+from facet_tpu_torch.processing.device_pipeline import rider_slice_size
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -221,24 +222,12 @@ class TOPIQNet(nn.Module):
                 + P.dense(p + ("head1",), self.head1))
 
 
-# Rider slice size, for TOPIQ and the other members that ride the fused
-# pass (SAMP-Net, SCRFD). The JAX package capped TOPIQ at 16 images per
-# call for 16 GB of HBM; here the slice comes from the card's free memory.
-# Basis: activations of one image at input size s are budgeted at
-# ACT_BYTES_PER_INPUT_PIXEL * s^2 (ResNet50 + the non-kernel attention
-# levels in f32) plus the f32 copy and first resize pass of the source
-# image (2 * 12 bytes per source pixel); a slice may use half the free
-# memory at the time the rider is built. On the CPU a slice is 16 images.
-ACT_BYTES_PER_INPUT_PIXEL = 4096
-MAX_SLICE = 256
-
-
-def rider_slice_size(device, h, w, input_size):
-    if torch.device(device).type != "cuda":
-        return 16
-    free, _ = torch.cuda.mem_get_info(device)
-    per_image = ACT_BYTES_PER_INPUT_PIXEL * input_size ** 2 + 24 * h * w
-    return int(max(1, min(MAX_SLICE, (free // 2) // per_image)))
+# Activation bytes of one image per pixel of TOPIQ's input (ResNet50 and the
+# attention levels outside kernel 2, in f32), for the rider's slice size
+# (processing/device_pipeline.py:rider_slice_size): 357 measured at 384 px
+# on an H100 80GB HBM3 at 700 W (chip_smoke.py --probe), rounded up to a
+# power of two.
+ACT_BYTES_PER_INPUT_PIXEL = 512
 
 
 class TOPIQScorer:
@@ -300,7 +289,8 @@ class TOPIQScorer:
         launches the forward slice by slice on the device tensor and returns
         un-fetched outputs; `finish` takes the fetched outputs and the image
         count and yields the 0-10 scores."""
-        cap = rider_slice_size(self.device, h, w, self.config.input_size)
+        cap = rider_slice_size(self.device, h, w, self.config.input_size,
+                               ACT_BYTES_PER_INPUT_PIXEL)
 
         def run(dev):
             return [self.forward_u8(dev[i:i + cap]) for i in range(0, dev.shape[0], cap)]

@@ -54,6 +54,26 @@ def fetch(tree, device):
     return _to_numpy(tree)
 
 
+# How many images of the resident batch one rider call takes (TOPIQ,
+# SAMP-Net, SCRFD's detection). The JAX package capped TOPIQ at 16 images
+# per call for 16 GB of HBM; here the slice comes from the card's free
+# memory. One image costs its member's activations, act_bytes_per_pixel
+# bytes for each pixel of the member's input size (each member's constant,
+# from its activation peak measured by ``chip_smoke.py --probe``), plus the
+# f32 copy and first resize pass of the source image (2 * 12 bytes per
+# source pixel); a slice may use half the free memory at the time the rider
+# is built. On the CPU a slice is 16 images.
+MAX_RIDER_SLICE = 256
+
+
+def rider_slice_size(device, h, w, input_size, act_bytes_per_pixel):
+    if torch.device(device).type != "cuda":
+        return 16
+    free, _ = torch.cuda.mem_get_info(device)
+    per_image = act_bytes_per_pixel * input_size ** 2 + 24 * h * w
+    return int(max(1, min(MAX_RIDER_SLICE, (free // 2) // per_image)))
+
+
 class FusedScorer:
     """Aesthetic + embedding + pHash + technical statistics per chunk."""
 
@@ -106,15 +126,14 @@ class FusedScorer:
         ``rider(h, w) -> (run, finish)`` (TOPIQ, SAMP-Net), each run on the
         same resident batch. Everything is fetched together, once per chunk.
 
-        Returns ``results`` alone with neither, ``(results, detections)``
-        with only ``face_pipeline``, and ``(results, detections,
-        rider_results)`` whenever ``riders`` is given (an empty dict
-        included; detections are then None without ``face_pipeline``),
-        rider_results mapping each rider name to its aligned output list.
+        Returns ``results`` alone with neither, else ``(results,
+        detections, rider_results)``: detections are None without
+        ``face_pipeline``, and rider_results maps each rider name to its
+        aligned output list.
         """
         results = [None] * len(images)
+        plain = face_pipeline is None and riders is None
         detections = [None] * len(images) if face_pipeline is not None else None
-        riders_passed = riders is not None
         riders = riders or {}
         rider_results = {name: [None] * len(images) for name in riders}
         by_shape = {}
@@ -141,11 +160,7 @@ class FusedScorer:
                     for idx, val in zip(idxs, finish(rider_out[name], len(idxs))):
                         rider_results[name][idx] = val
                 self._collect(out, idxs, h, w, results)
-        if riders_passed:
-            return results, detections, rider_results
-        if face_pipeline is not None:
-            return results, detections
-        return results
+        return results if plain else (results, detections, rider_results)
 
     @staticmethod
     def _collect(out, idxs, h, w, results):

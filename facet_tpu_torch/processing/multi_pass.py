@@ -102,12 +102,24 @@ class ChunkedMultiPassProcessor:
     def detect_and_configure(self, verbose=True):
         memory = self.models.memory_gb
         self.selected_models = self.models.select_models(self.config)
+        self._refuse_unrunnable()
         self.passes = self.models.group_passes(self.selected_models)
         if verbose:
             mode = f"{memory:.1f} GB on {self.models.device}" if memory > 0 else "CPU mode"
             print(f"multi-pass: {mode}, models {self.selected_models}, "
                   f"{len(self.passes)} pass(es): {self.passes}")
         return self.passes
+
+    def _refuse_unrunnable(self):
+        """Raise NotImplementedError before any chunk when the selection holds
+        a member this install would make the port run differently from the
+        JAX package: the faces member with a converted 2d106det landmark
+        graph installed. The load fallback below would skip it, writing "no
+        face" rows (and, in --pass faces, over stored face columns)."""
+        if "insightface" in self.selected_models:
+            from facet_tpu_torch.models.face_pipeline import check_no_landmark_graph
+
+            check_no_landmark_graph()
 
     # ------------------------------------------------------------- chunk IO
 
@@ -231,19 +243,15 @@ class ChunkedMultiPassProcessor:
                 riders[slot] = model
                 rider_names[slot] = name
         t0 = time.time()
-        fused = self.scorer._fused_scorer()
-        if face_model is not None or riders:
-            outputs, detections, rider_out = fused.score_images(
-                state["images"], face_pipeline=face_model, riders=riders)
-            if face_model is not None:
-                state["face_detections"] = detections
-            if "quality" in rider_out:
-                state["topiq"] = rider_out["quality"]
-                state["quality_model"] = rider_names["quality"]
-            if "samp" in rider_out:
-                state["samp"] = rider_out["samp"]
-        else:
-            outputs = fused.score_images(state["images"])
+        outputs, detections, rider_out = self.scorer._fused_scorer().score_images(
+            state["images"], face_pipeline=face_model, riders=riders)
+        if face_model is not None:
+            state["face_detections"] = detections
+        if "quality" in rider_out:
+            state["topiq"] = rider_out["quality"]
+            state["quality_model"] = rider_names["quality"]
+        if "samp" in rider_out:
+            state["samp"] = rider_out["samp"]
         state["tech"] = [self.scorer.technical.metrics_from_stats(o[3])
                          for o in outputs]
         state["phash"] = [o[2] for o in outputs]
@@ -381,6 +389,7 @@ class ChunkedMultiPassProcessor:
             raise ValueError(f"unknown pass '{pass_name}' "
                              f"(choose from {sorted(PASS_NAMES)})")
         self.selected_models = list(PASS_NAMES[pass_name])
+        self._refuse_unrunnable()
         self.passes = self.models.group_passes(self.selected_models)
         if verbose:
             print(f"single pass '{pass_name}': models {self.selected_models}, "

@@ -4,7 +4,8 @@ A subprocess refuses every import of jax, jaxlib, flax, optax and
 facet_tpu, imports facet_tpu_torch and every module under it, and runs a
 2-image ``--pass quality`` scan on the CPU (``--device cpu``) in both stats
 configurations, then the default multi-pass scan under the "16gb" profile
-(CLIP, TOPIQ, SAMP-Net and the faces member, in the fast tier). No file of the package, and not chip_smoke.py, may import
+(CLIP, TOPIQ, SAMP-Net and the faces member, in the fast tier, with
+TOPIQ at 128 px and SCRFD on a 160 px canvas). No file of the package, and not chip_smoke.py, may import
 any of those roots or name the facet_tpu directory. Without a card, and
 without an explicit request for the CPU, the CLI and ModelManager fail.
 """
@@ -62,6 +63,9 @@ import functools
 from facet_tpu_torch.models import topiq
 topiq.FAST_TIER_INPUT_SIZE = 128
 topiq.TOPIQConfig = functools.partial(topiq.TOPIQConfig, input_size=128)
+# SCRFD on a 160 px canvas instead of the fast tier's 448: the same layers
+from facet_tpu_torch.models import face_pipeline
+face_pipeline.FAST_TIER_DET_SIZE = 160
 
 from facet_tpu_torch.__main__ import main
 rcs, rows = [], []
@@ -91,6 +95,9 @@ def test_port_runs_without_jax(tmp_path):
     env = {k: v for k, v in os.environ.items()
            if k not in ("FACET_PLATFORM", "JAX_PLATFORMS", "XLA_FLAGS")}
     env["PYTHONPATH"] = str(REPO)
+    # the scans' models are tiny: two threads, so that the subprocess does
+    # not contend with the test workers for every core
+    env["OMP_NUM_THREADS"] = "2"
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=tmp_path, env=env,
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]

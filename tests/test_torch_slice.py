@@ -299,6 +299,32 @@ def test_cli_quality_pass_and_refusals(photos, tmp_path, capsys, monkeypatch):
     assert len(_rows(db)) == 2
 
 
+@pytest.mark.parametrize("scan", [[], ["--pass", "faces"]], ids=["default", "faces"])
+def test_cli_refuses_landmark_graph(photos, tmp_path, capsys, monkeypatch, scan):
+    """With a converted 2d106det graph installed, a scan that holds the faces
+    member exits 2 naming the graph before any row is written (the JAX
+    package would run that graph; the port has no runner for it), instead
+    of skipping the member and writing "no face" rows."""
+    from facet_tpu_torch import params as P
+    from facet_tpu_torch.__main__ import main
+
+    _, files, cfg_path = photos
+    cfg = json.loads(open(cfg_path).read())
+    cfg["models"]["vram_profile"] = "16gb"
+    cfg16 = tmp_path / "cfg16.json"
+    cfg16.write_text(json.dumps(cfg))
+    pretrained = tmp_path / "pretrained"
+    pretrained.mkdir()
+    (pretrained / "landmark_106_graph.npz").write_bytes(b"")
+    monkeypatch.setattr(P, "PRETRAINED_DIR", str(pretrained))
+    db = str(tmp_path / "graph.db")
+    rc = main([os.path.dirname(files[0]), *scan, "--db", db, "--config", str(cfg16),
+               "--device", "cpu"])
+    assert rc == 2
+    assert "landmark_106_graph" in capsys.readouterr().err
+    assert _rows(db) == []
+
+
 def test_embeddings_pass_attention_schedules(embeddings_runs):
     """Under FACET_ATTN_IMPL=psoftmax and =flash the port's --pass
     embeddings rows match facet_tpu's under the same variable: the CLIP
