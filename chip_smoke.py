@@ -76,7 +76,27 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    new member's device time per batch of 24 at 1024x1536 (CUDA events, and
    replayed from a CUDA graph): the SAMP rider, SCRFD's detection and
    decode, the landmark net and ArcFace on as many crops as the scan found
-   faces in those photos.
+   faces in those photos;
+6. the Qwen2.5-VL-7B tagger and the default scan under ``vram_profile:
+   "auto"``, which resolves to the "24gb" profile on the card. First with
+   nothing installed: the tagger chain prints its three "unavailable"
+   lines and the rows equal phase 5's (CLIP tags; floats within
+   SCORE_TOL, CLIP embeddings at cosine EMBEDDING_MIN_COSINE or more).
+   Then the tagger at its published widths (vision tower float32, decoder
+   bf16, random weights drawn on the card from a seed) with the stand-in
+   processor below (the published smart_resize, patch rows and special
+   ids; ids decode onto the tag vocabulary): the first decoder layer, the
+   first vision block and the merger on 256 tokens against float64 on the
+   CPU (LAYER_BF16_REL_TOL, LAYER_F32_REL_TOL); a cached greedy decode of
+   two photos of different shapes against the cache-less forward
+   (DECODE_LOGIT_TOL); CUDA-event times of the vision encode, the prefill
+   and a decode step per batch of two, beside their bounds; the memory
+   peak while tagging against the tagger's 18 GB budget; then the scan
+   with the tagger registered through ModelManager.register over
+   TAGGER_PHOTOS_PER_SHAPE photos of each shape: every row's tags are the
+   tagger's own for that photo, no batch skipped, TF32 off inside the
+   vision tower. Both scans launch kernels 1, 5 and 2 twice each and no
+   other kernel.
 
 The second-to-last line is the kernel report, a JSON object; the last line
 is {"ok": true, "device": {...}}.
@@ -105,7 +125,9 @@ times and the host time of each stage (the fused pass with its riders,
 which ends in the chunk's one synchronize and fetch; the faces stage;
 row assembly; tagging; saving); the profiled run also the device's busy
 time (its kernels' and copies' times, one stream) as a share of its wall
-time, and the kernels that take most of it.
+time, and the kernels that take most of it. Then the same three runs of
+the 24gb scan with the full-width tagger registered (built on first use),
+over phase 6's subset, with the tagger's host time.
 """
 
 import contextlib
@@ -118,6 +140,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -302,6 +325,131 @@ def synthetic_photos(n, h, w, seed, degenerate=False):
     return out
 
 
+# ------------------------------------------------- the stand-in processor
+
+# Qwen2.5-VL-7B-Instruct's published processor: special-token ids, the
+# image processor's smart_resize bounds (factor 28 = patch 14 x merge 2) and
+# its normalization (OpenAI CLIP's mean and std)
+QWEN_SPECIALS = {"<|endoftext|>": 151643, "<|im_start|>": 151644, "<|im_end|>": 151645,
+                 "<|vision_start|>": 151652, "<|vision_end|>": 151653,
+                 "<|image_pad|>": 151655}
+QWEN_MIN_PIXELS = 3136
+QWEN_MAX_PIXELS = 12845056
+CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+
+
+def smart_resize(height, width, factor, min_pixels, max_pixels):
+    """transformers' Qwen2-VL smart_resize: both sides multiples of factor,
+    the pixel count within [min_pixels, max_pixels], the aspect kept."""
+    import math
+
+    h_bar = round(height / factor) * factor
+    w_bar = round(width / factor) * factor
+    if h_bar * w_bar > max_pixels:
+        beta = math.sqrt((height * width) / max_pixels)
+        h_bar = max(factor, math.floor(height / beta / factor) * factor)
+        w_bar = max(factor, math.floor(width / beta / factor) * factor)
+    elif h_bar * w_bar < min_pixels:
+        beta = math.sqrt(min_pixels / (height * width))
+        h_bar = math.ceil(height * beta / factor) * factor
+        w_bar = math.ceil(width * beta / factor) * factor
+    return h_bar, w_bar
+
+
+class StandInTokenizer:
+    """Token ids without a vocabulary file: the special tokens at their ids,
+    every other word or punctuation mark at a hash of it below ``n_text``;
+    ``decode`` maps each text id onto a tag of ``vocabulary``, comma
+    separated, so that a tagger's reply parses into tags."""
+
+    def __init__(self, vocabulary, specials, n_text):
+        self.vocabulary = list(vocabulary)
+        self.specials = dict(specials)
+        self.n_text = n_text
+        self.eos_token_id = self.pad_token_id = self.specials["<|endoftext|>"]
+
+    def convert_tokens_to_ids(self, token):
+        return self.specials.get(token)
+
+    def encode(self, text):
+        import re
+        import zlib
+
+        ids = []
+        for part in re.split(r"(<\|[a-z_]+\|>)", text):
+            if part in self.specials:
+                ids.append(self.specials[part])
+            else:
+                ids += [zlib.crc32(w.encode()) % self.n_text
+                        for w in re.findall(r"\w+|[^\w\s]", part)]
+        return ids
+
+    def decode(self, ids, skip_special_tokens=True):
+        return ", ".join(self.vocabulary[int(i) % len(self.vocabulary)]
+                         for i in ids if int(i) < self.n_text)
+
+
+class StandInProcessor:
+    """The contract of transformers' Qwen2.5-VL processor without its files:
+    the chat template, the image processor's smart_resize, bicubic resize,
+    rescale and normalization and its cell-major patch rows (held to
+    transformers' Qwen2VLImageProcessor by tests/test_torch_vlm.py), the
+    image pad expanded to one token per merged cell, left padding. The
+    defaults are the published model's; tests pass a tiny model's sizes."""
+
+    def __init__(self, vocabulary, specials=QWEN_SPECIALS, n_text=QWEN_SPECIALS["<|endoftext|>"],
+                 patch_size=14, merge_size=2, temporal_patch_size=2,
+                 min_pixels=QWEN_MIN_PIXELS, max_pixels=QWEN_MAX_PIXELS):
+        self.tokenizer = StandInTokenizer(vocabulary, specials, n_text)
+        self.image_token_id = specials["<|image_pad|>"]
+        self.patch_size = patch_size
+        self.merge_size = merge_size
+        self.temporal_patch_size = temporal_patch_size
+        self.min_pixels = min_pixels
+        self.max_pixels = max_pixels
+
+    def apply_chat_template(self, messages, tokenize=False, add_generation_prompt=True):
+        text = "<|im_start|>system\nYou are a helpful assistant.<|im_end|>\n"
+        for message in messages:
+            text += f"<|im_start|>{message['role']}\n"
+            for item in message["content"]:
+                text += ("<|vision_start|><|image_pad|><|vision_end|>"
+                         if item["type"] == "image" else item["text"])
+            text += "<|im_end|>\n"
+        return text + ("<|im_start|>assistant\n" if add_generation_prompt else "")
+
+    def preprocess(self, image):
+        """PIL image -> ((grid_h * grid_w, C * T * P * P) float32 patch rows in
+        cell-major order, (1, grid_h, grid_w))."""
+        from PIL import Image
+
+        arr = np.asarray(image.convert("RGB"))
+        p, m, t = self.patch_size, self.merge_size, self.temporal_patch_size
+        rh, rw = smart_resize(arr.shape[0], arr.shape[1], p * m, self.min_pixels,
+                              self.max_pixels)
+        resized = np.array(Image.fromarray(arr).resize((rw, rh), resample=Image.BICUBIC))
+        x = (resized.astype(np.float64) * (1 / 255)).astype(np.float32)
+        x = (x - np.array(CLIP_MEAN, np.float32)) / np.array(CLIP_STD, np.float32)
+        x = np.repeat(x.transpose(2, 0, 1)[None], t, axis=0)        # (T, C, H, W)
+        gh, gw = rh // p, rw // p
+        x = x.reshape(1, t, 3, gh // m, m, p, gw // m, m, p).transpose(0, 3, 6, 4, 7, 2, 1, 5, 8)
+        return x.reshape(gh * gw, 3 * t * p * p), (1, gh, gw)
+
+    def __call__(self, text, images, return_tensors="np", padding=True):
+        patches, grids = zip(*(self.preprocess(image) for image in images))
+        rows, pad_text = [], "<|image_pad|>"
+        for prompt, (gt, gh, gw) in zip(text, grids):
+            n = gt * gh * gw // self.merge_size ** 2
+            rows.append(self.tokenizer.encode(prompt.replace(pad_text, pad_text * n, 1)))
+        width = max(len(r) for r in rows)
+        pad = self.tokenizer.pad_token_id
+        ids = np.array([[pad] * (width - len(r)) + r for r in rows], np.int64)
+        mask = np.array([[0] * (width - len(r)) + [1] * len(r) for r in rows], np.int64)
+        return {"input_ids": ids, "attention_mask": mask,
+                "pixel_values": np.concatenate(patches), "image_grid_thw": np.array(grids)}
+
+
 # ------------------------------------------------------------------ phases
 
 
@@ -315,7 +463,7 @@ def phase_device():
                     f" | nvidia-smi: {line} | torch {torch.__version__}"
                     f" cuda {torch.version.cuda}")
     found = {m: importlib.util.find_spec(m) is not None
-             for m in ("PIL", "cv2", "psutil", "jax")}
+             for m in ("PIL", "cv2", "psutil", "transformers", "jax")}
     phase("device", f"host packages importable: {found} (jax is not used)")
     return line
 
@@ -1209,7 +1357,7 @@ def run_default_scan(photo_dir, db, quality_rows, gpu):
     for ln in text.splitlines():
         if "phases:" in ln or "scan complete:" in ln or "multi-pass:" in ln:
             phase("default", ln.strip())
-    return launches, sum(r["face_count"] for r in big)
+    return launches, sum(r["face_count"] for r in big), rows
 
 
 def time_members(gpu, crops):
@@ -1300,18 +1448,19 @@ def compare_attention_rows(got, want, impl):
     return worst
 
 
-def phase_scan(gpu):
+def phase_scan(gpu, tmp):
+    """Phases 4 and 5 over the smoke's photos, written under tmp/photos ->
+    (launches by scan, the default scan's rows)."""
     phase("scan", f"process TF32 flags (cudnn, matmul), torch's defaults: "
                   f"{tf32_flags()}")
-    with tempfile.TemporaryDirectory() as tmp:
-        photo_dir = os.path.join(tmp, "photos")
-        os.makedirs(photo_dir)
-        paths = write_photos(photo_dir)
-        cfg = os.path.join(tmp, "scoring_config.json")
-        scans = {impl: run_scan(photo_dir, os.path.join(tmp, f"{impl}.db"), cfg,
-                                impl, gpu) for impl in SCANS}
-        default, crops = run_default_scan(photo_dir, os.path.join(tmp, "default.db"),
-                                          scans["pallas"][0], gpu)
+    photo_dir = os.path.join(tmp, "photos")
+    os.makedirs(photo_dir)
+    paths = write_photos(photo_dir)
+    cfg = os.path.join(tmp, "scoring_config.json")
+    scans = {impl: run_scan(photo_dir, os.path.join(tmp, f"{impl}.db"), cfg,
+                            impl, gpu) for impl in SCANS}
+    default, crops, default_rows = run_default_scan(
+        photo_dir, os.path.join(tmp, "default.db"), scans["pallas"][0], gpu)
     time_members(gpu, crops)
     for rows, _ in scans.values():
         if len(rows) != len(paths):
@@ -1329,7 +1478,398 @@ def phase_scan(gpu):
                       f"(limit {EMBEDDING_MIN_COSINE}), tags differ on "
                       f"{worst['tags_differ']} of {len(paths)} photos")
     return {"default": default,
-            **{impl: launches for impl, (_, launches) in scans.items()}}
+            **{impl: launches for impl, (_, launches) in scans.items()}}, default_rows
+
+
+# ------------------------------------------------ phase 6: the VLM tagger
+
+# The first decoder layer in bf16 on the card against the same weights in
+# float64 on the CPU: the relative RMS of its output (bf16 rounds at about
+# 2^-9 relative; the layer rounds at a dozen points).
+LAYER_BF16_REL_TOL = 2e-2
+# The first vision block and the merger in float32 (TF32 off) against
+# float64: float32 rounding, 6e-8 relative, summed over 1280-5120 terms.
+LAYER_F32_REL_TOL = 1e-5
+# The cached decode against the cache-less forward (bf16 scores where the
+# cache path holds float32 ones), teacher-forced over the prompt and the
+# generated tokens: logits of magnitude up to about 4 may differ by
+# DECODE_LOGIT_TOL (4 bf16 ulps there; measured 0.035 on the CPU for 24
+# layers of width 896, and 0.031 at full width on the card); a greedy
+# token must be the cache-less argmax wherever the top-2 gap there exceeds
+# twice that, and nearer ties are counted and printed.
+DECODE_LOGIT_TOL = 0.0625
+# photos of each shape the scan with the tagger covers
+TAGGER_PHOTOS_PER_SHAPE = 2
+TAGGER_SEED = 8
+
+
+def build_tagger(config, device="cuda"):
+    """The Qwen2.5-VL-7B tagger at its published widths with random weights
+    drawn on the card (torch.Generator, TAGGER_SEED), and the stand-in
+    processor -> (VLMTagger, seconds to build)."""
+    from facet_tpu_torch import params as P
+    from facet_tpu_torch.models.qwen_text import QwenTextDecoder, QwenTextModel
+    from facet_tpu_torch.models.qwen_vision import QwenVisionEncoder, QwenVisionTower
+    from facet_tpu_torch.models.vlm_tagger import VLMTagger
+
+    t0 = time.time()
+    gen = torch.Generator(device=device).manual_seed(TAGGER_SEED)
+    tagger = VLMTagger(config, device=device)
+    encoder = QwenVisionEncoder(P.random_init_(QwenVisionTower(device=device), gen))
+    model = P.random_init_(QwenTextModel(dtype=torch.bfloat16, device=device), gen)
+    tagger.install(StandInProcessor(tagger.vocabulary), encoder,
+                   QwenTextDecoder(model, tagger.max_new_tokens))
+    torch.cuda.synchronize()
+    return tagger, time.time() - t0
+
+
+def rel_rms(got, want):
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm())
+
+
+def check_tagger_layers(tagger, gpu):
+    """The first decoder layer (bf16), the first vision block and the merger
+    (float32, TF32 off) at full width on 256 tokens, against the same
+    weights in float64 on the CPU."""
+    from facet_tpu_torch.models.qwen_text import DecoderLayer, mrope_cos_sin
+    from facet_tpu_torch.models.qwen_vision import QwenVisionTower, VisionBlock
+
+    encoder, decoder = tagger._device
+    cfg, tower, dev = decoder.config, encoder.tower, decoder.device
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n = 256
+    # hidden states at the token embeddings' scale (std 0.02), so that the
+    # layer's output is mostly its own work and not its residual input
+    x = (0.02 * torch.randn((1, n, cfg.hidden_size), device=dev, generator=gen)).to(torch.bfloat16)
+    pos = torch.randint(0, 300, (3, 1, n), device=dev, generator=gen)
+    mask = torch.ones((n, n), dtype=torch.bool, device=dev).tril()[None]
+    layer = decoder.model.layers[0]
+    ref = DecoderLayer(cfg, torch.float64, "cpu")
+    ref.load_state_dict(layer.state_dict())
+    with torch.no_grad():
+        got = layer(x, *mrope_cos_sin(pos, cfg, torch.bfloat16), mask).cpu()
+        want = ref(x.cpu().double(), *mrope_cos_sin(pos.cpu(), cfg, torch.float64), mask.cpu())
+    err_text = rel_rms(got, want)
+    del ref
+
+    # 256 patches of a 16x16 grid: four whole windows of 64 tokens
+    vcfg = tower.config
+    _, valid, _, cos, sin, nwin = tower.layout(16, 16)
+    xv = torch.randn((nwin, n // nwin, vcfg.hidden_size), device=dev, generator=gen)
+    block = tower.blocks[0]
+    ref_block = VisionBlock(vcfg, "cpu").double()
+    ref_block.load_state_dict(block.state_dict())
+    ref_tower = QwenVisionTower(replace(vcfg, depth=0), "cpu").double()
+    ref_tower.load_state_dict({k: v for k, v in tower.state_dict().items()
+                               if not k.startswith("blocks.")})
+    tok_valid = valid.repeat_interleave(4).view(nwin, -1)
+    rope = [t.view(nwin, -1, t.shape[-1]) for t in (cos, sin)]
+    with torch.no_grad(), full_float32():
+        got_block = block(xv, *rope, tok_valid).cpu()
+        got_merge = tower.merger(xv.reshape(n, -1)).cpu()
+    with torch.no_grad():
+        want_block = ref_block(xv.cpu().double(), *[t.cpu().double() for t in rope],
+                               tok_valid.cpu())
+        want_merge = ref_tower.merger(xv.cpu().double().reshape(n, -1))
+    xv64 = xv.cpu().double()
+    err_block = rel_rms(got_block.double() - xv64, want_block - xv64)
+    err_merge = rel_rms(got_merge, want_merge)
+    for name, err, tol in (("first decoder layer (bf16)", err_text, LAYER_BF16_REL_TOL),
+                           ("first vision block (f32)", err_block, LAYER_F32_REL_TOL),
+                           ("merger (f32)", err_merge, LAYER_F32_REL_TOL)):
+        if not err <= tol:
+            raise AssertionError(f"{name} on {n} tokens: relative RMS error {err} against "
+                                 f"float64 on the CPU, above {tol}")
+    phase("tagger", f"at full width on {n} tokens against float64 on the CPU, relative RMS "
+                    f"error: first decoder layer {err_text:.3g} (bf16, tol "
+                    f"{LAYER_BF16_REL_TOL}), first vision block's increment {err_block:.3g}, "
+                    f"merger {err_merge:.3g} (f32, tol {LAYER_F32_REL_TOL})")
+
+
+def check_tagger_decode(tagger, pils, gpu):
+    """The cached greedy decode of a batch of two photos of different
+    shapes (the shorter prompt left-padded) against the cache-less forward
+    over the prompt and the generated tokens."""
+    from facet_tpu_torch.models.vlm_tagger import prepare_inputs
+
+    encoder, decoder = tagger._device
+    model, dev = decoder.model, decoder.device
+    embeds, valid, pos, next_pos, eos = prepare_inputs(
+        tagger._processor, encoder, decoder, pils, tagger.build_prompt())
+    out = decoder.generate(embeds, valid, pos, next_pos, eos)
+    b, t, _ = embeds.shape
+    n = out.shape[1]
+    with torch.no_grad():
+        full = torch.cat([embeds, model.embed_tokens(
+            torch.as_tensor(out[:, :-1], device=dev)).float()], 1)
+        gen_pos = next_pos[None, :, None] + np.arange(n - 1)[None, None, :]
+        all_pos = torch.as_tensor(np.concatenate(
+            [pos, np.broadcast_to(gen_pos, (3, b, n - 1))], 2), device=dev)
+        keep = torch.cat([torch.as_tensor(valid, device=dev),
+                          torch.ones((b, n - 1), dtype=torch.bool, device=dev)], 1)
+        mask = torch.ones((t + n - 1,) * 2, dtype=torch.bool, device=dev).tril()[None] \
+            & keep[:, None, :]
+        last = np.where(valid, np.arange(t), -1).max(1)
+        steps = torch.as_tensor(np.stack([np.concatenate([[r], t + np.arange(n - 1)])
+                                          for r in last]), device=dev)
+        rows = torch.arange(b, device=dev)[:, None]
+        plain = model(full, all_pos, mask)[rows, steps]
+        cache = [tuple(torch.zeros((b, decoder.config.num_kv_heads, t + n - 1,
+                                    decoder.config.head_dim), device=dev)
+                       for _ in range(2)) for _ in range(decoder.config.num_layers)]
+        cached = model(full, all_pos, mask, cache, 0)[rows, steps]
+    # compare each row up to and including its first EOS
+    upto = [int(np.nonzero(np.isin(r, eos))[0][0]) + 1 if np.isin(r, eos).any() else n
+            for r in out]
+    live = torch.as_tensor(np.arange(n)[None, :] < np.array(upto)[:, None], device=dev)
+    diff = float((plain - cached).abs().amax(-1)[live].max())
+    top2 = plain.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    agree = plain.argmax(-1).cpu().numpy() == out
+    agree = torch.as_tensor(agree, device=dev)
+    clear = live & (gap > 2 * DECODE_LOGIT_TOL)
+    wrong = int((clear & ~agree).sum())
+    near = int((live & ~(gap > 2 * DECODE_LOGIT_TOL)).sum())
+    near_differ = int((live & ~(gap > 2 * DECODE_LOGIT_TOL) & ~agree).sum())
+    if diff > DECODE_LOGIT_TOL or wrong:
+        raise AssertionError(f"cached decode against the cache-less forward: max|d logit| "
+                             f"{diff} (tol {DECODE_LOGIT_TOL}), {wrong} tokens that are not "
+                             f"the argmax where the top-2 gap exceeds {2 * DECODE_LOGIT_TOL}")
+    phase("tagger", f"cached greedy decode of 2 photos (prompts of {valid.sum(1).tolist()} "
+                    f"tokens padded to {t}, {n} new tokens, stops after {upto}) against the "
+                    f"cache-less forward: max|d logit| {diff:.4g} teacher-forced (tol "
+                    f"{DECODE_LOGIT_TOL}, logits up to {float(plain.abs().max()):.3g}); "
+                    f"{int(clear.sum())} tokens with a top-2 gap above "
+                    f"{2 * DECODE_LOGIT_TOL} all agree; {near} near ties, {near_differ} of "
+                    f"them decoded otherwise; {int((live & agree).sum())} of "
+                    f"{int(live.sum())} tokens are the cache-less argmax")
+    del plain, cached, cache, full
+    return embeds, valid, pos, next_pos, eos
+
+
+def tagger_bounds(tagger, grids, valid):
+    """Least times (ms) of one batch on the card, from this batch's shapes:
+    the vision tower (float32 operations of its real tokens), the prefill
+    (bf16 operations of the valid prompt tokens) and one decode step (the
+    bytes of the decoder's weights, lm_head included, and of its cache)."""
+    from facet_tpu_torch.models.qwen_vision import window_layout
+
+    encoder, decoder = tagger._device
+    vcfg, cfg = encoder.config, decoder.config
+    e, i, unit = vcfg.hidden_size, vcfg.intermediate_size, vcfg.spatial_merge_size ** 2
+    vision_ops = 0
+    for _, gh, gw in grids:
+        lay = window_layout(vcfg, gh, gw)
+        tokens = gh * gw
+        per_window = lay["valid"].reshape(lay["n_windows"], -1).sum(1) * unit
+        dense = 2 * tokens * (4 * e * e + 3 * e * i)          # qkv, proj, gate/up/down
+        full = len(vcfg.fullatt_block_indexes)
+        attn = 4 * e * ((vcfg.depth - full) * float((per_window ** 2).sum()) + full * tokens ** 2)
+        merger = 2 * (tokens // unit) * (unit * e) * (unit * e + vcfg.out_hidden_size)
+        vision_ops += vcfg.depth * dense + attn + 2 * tokens * vcfg.patch_dim * e + merger
+    hd = cfg.head_dim
+    layer_params = (cfg.hidden_size * (cfg.num_heads + 2 * cfg.num_kv_heads) * hd
+                    + cfg.num_heads * hd * cfg.hidden_size
+                    + 3 * cfg.hidden_size * cfg.intermediate_size)
+    head = cfg.vocab_size * cfg.hidden_size
+    lens = valid.sum(1)
+    prefill_ops = float(sum(2 * cfg.num_layers * layer_params * n + 2 * head
+                            + 2 * cfg.num_layers * 2 * cfg.num_heads * hd * n * (n + 1) / 2
+                            for n in lens))
+    b, t = valid.shape
+    cache_bytes = cfg.num_layers * 2 * b * (t + decoder.max_new_tokens) * cfg.num_kv_heads * hd * 4
+    step_bytes = 2 * (cfg.num_layers * layer_params + head) + cache_bytes
+    return {"vision": bound(0, vision_ops, FP32_OPS),
+            "prefill": bound(2 * (cfg.num_layers * layer_params + head), prefill_ops, BF16_FLOPS),
+            "decode step": bound(step_bytes, 0, BF16_FLOPS)}
+
+
+def time_tagger(tagger, pils, inputs, gpu):
+    """CUDA-event times of one batch of two photos: the vision encode, the
+    prefill (a decode of one token) and each further decode step, beside
+    their bounds."""
+    from facet_tpu_torch.models.qwen_text import QwenTextDecoder
+
+    encoder, decoder = tagger._device
+    processed = tagger._processor(text=["<|image_pad|>"] * len(pils), images=pils)
+    grids = processed["image_grid_thw"].tolist()
+    embeds, valid, pos, next_pos, eos = inputs
+    prefill = QwenTextDecoder(decoder.model, 1)
+    times = {
+        "vision": cuda_median_ms(lambda: encoder.encode(processed["pixel_values"], grids),
+                                 reps=3, warmup=1),
+        "prefill": cuda_median_ms(lambda: prefill.generate(embeds, valid, pos, next_pos, eos),
+                                  reps=3, warmup=1),
+        "generate": cuda_median_ms(lambda: decoder.generate(embeds, valid, pos, next_pos, eos),
+                                   reps=2, warmup=0)}
+    steps = decoder.max_new_tokens - 1
+    times["decode step"] = (times["generate"] - times["prefill"]) / steps
+    bounds = tagger_bounds(tagger, grids, valid)
+    for name in ("vision", "prefill", "decode step"):
+        b_ms, by = bounds[name]
+        phase("tagger", f"{name}: {times[name]:.3f} ms per batch of {len(pils)} "
+                        f"(grids {grids}, prompts of {valid.sum(1).tolist()} tokens padded to "
+                        f"{valid.shape[1]}); bound {b_ms:.3f} ms by {by} ({gpu})")
+    phase("tagger", f"whole generate ({steps} decode steps, no early stop): "
+                    f"{times['generate']:.3f} ms per batch ({gpu})")
+    return times
+
+
+def run_tagger_scan(photo_dir, db, tagger, gpu):
+    """``python -m facet_tpu_torch <dir>`` under the default config
+    (``vram_profile: auto``), with ``tagger`` registered for vlm_tagger
+    through ModelManager.register when given -> (rows, launches, printed
+    lines, seconds)."""
+    from facet_tpu_torch.__main__ import main as cli_main
+    from facet_tpu_torch.config.default_config import write_default_config
+    from facet_tpu_torch.models.model_manager import ModelManager
+
+    cfg = os.path.join(os.path.dirname(db), "scoring_config_auto.json")
+    write_default_config(cfg, overwrite=True)
+    defaults = ModelManager._register_default_factories
+
+    def register(manager):
+        defaults(manager)
+        if tagger is not None:
+            manager.register("vlm_tagger", lambda config, cached: tagger)
+
+    ModelManager._register_default_factories = register
+    os.environ["FACET_ENTROPY_IMPL"] = "pallas"
+    for fn, attr in COUNTERS.values():
+        setattr(fn, attr, 0)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = Tee(sys.stdout)
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli_main([photo_dir, "--db", db, "--config", cfg])
+        torch.cuda.synchronize()
+    finally:
+        ModelManager._register_default_factories = defaults
+        del os.environ["FACET_ENTROPY_IMPL"]
+    seconds = time.time() - t0
+    launches = {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
+    if rc != 0:
+        raise AssertionError(f"the 24gb scan exited {rc}")
+    lines = out.getvalue().splitlines()
+    plan = [ln for ln in lines if ln.startswith("multi-pass:")]
+    if not plan or "'vlm_tagger'" not in plan[0]:
+        raise AssertionError(f"vram_profile auto did not resolve to the 24gb profile: {plan}")
+    for name, count in launches.items():
+        if count != (2 if name in DEFAULT_MUST else 0):
+            raise AssertionError(f"kernel {name} launched {count} times during the 24gb scan; "
+                                 f"K1, K5 and K2 must launch twice each, and nothing else")
+    conn = sqlite3.connect(db)
+    rows = [dict(zip(DEFAULT_COLUMNS, r)) for r in conn.execute(
+        f"SELECT {', '.join(DEFAULT_COLUMNS)} FROM photos ORDER BY path")]
+    conn.close()
+    return rows, launches, lines, seconds
+
+
+def phase_tagger(gpu, tmp, default_rows):
+    """Phase 6: the Qwen2.5-VL-7B tagger at full width on the card -> the
+    launch counts of the two 24gb scans."""
+    from facet_tpu_torch.config.scoring_config import ScoringConfig
+    from facet_tpu_torch.models.model_manager import MODEL_DEVICE_REQUIREMENTS
+    from facet_tpu_torch.models.qwen_vision import QwenVisionTower
+    from facet_tpu_torch.processing.multi_pass import ChunkedMultiPassProcessor
+    from facet_tpu_torch.processing.scorer import Facet
+    from facet_tpu_torch.utils.image_loading import gather_image_files
+    from facet_tpu_torch.utils.tags import tags_to_string
+
+    photo_dir = os.path.join(tmp, "photos")
+    # nothing installed: the chain falls back to CLIP tags, rows as the 16gb scan's
+    rows, plain_launches, lines, seconds = run_tagger_scan(
+        photo_dir, os.path.join(tmp, "auto.db"), None, gpu)
+    chain = [ln.strip() for ln in lines if "unavailable" in ln]
+    if [ln.split(":")[0] for ln in chain] != ["pass vlm_tagger", "pass qwen3_vl_tagger",
+                                              "pass ram_tagger"]:
+        raise AssertionError(f"the 24gb scan with nothing installed printed {chain}")
+    if [r["path"] for r in rows] != [r["path"] for r in default_rows]:
+        raise AssertionError("the 24gb scan wrote other photos than the 16gb scan")
+    worst = compare_attention_rows(rows, default_rows, "24gb")
+    for row, want in zip(rows, default_rows):
+        for col in DEFAULT_COLUMNS:
+            same = (abs(row[col] - want[col]) <= SCORE_TOL
+                    if isinstance(row[col], float) and isinstance(want[col], float)
+                    else col in ("clip_embedding", "tags") or row[col] == want[col])
+            if not same:
+                raise AssertionError(f"{col} at {row['path']}: {row[col]!r} in the 24gb scan "
+                                     f"with nothing installed, {want[col]!r} in the 16gb scan")
+        if row["clip_embedding"] == want["clip_embedding"] and row["tags"] != want["tags"]:
+            raise AssertionError(f"{row['path']}: the same CLIP embedding as the 16gb scan's "
+                                 f"and other tags")
+    for ln in chain:
+        phase("tagger", ln)
+    phase("tagger", f"nothing installed: vram_profile auto ran the 24gb profile; {len(rows)} "
+                    f"rows equal the 16gb scan's (floats within {SCORE_TOL}, CLIP embeddings "
+                    f"at cosine >= {worst['cosine']:.7f}, tags by CLIP, differing on "
+                    f"{worst['tags_differ']} photos); launches {plain_launches}; "
+                    f"{len(rows) / seconds:.2f} images/s ({gpu})")
+
+    config = ScoringConfig(os.path.join(tmp, "scoring_config_auto.json"))
+    tagger, build_s = build_tagger(config)
+    phase("tagger", f"Qwen2.5-VL-7B at full width (vision tower f32, decoder bf16), random "
+                    f"weights drawn on the card in {build_s:.1f} s; "
+                    f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated ({gpu})")
+    check_tagger_layers(tagger, gpu)
+    seen = []
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(
+        lambda module, _: seen.append(tf32_flags())
+        if isinstance(module, QwenVisionTower) else None)
+
+    # the subset: TAGGER_PHOTOS_PER_SHAPE photos of each shape, in a folder
+    sub_dir = os.path.join(tmp, "tagger_photos")
+    os.makedirs(sub_dir)
+    for (h, w) in SCAN_SHAPES:
+        for i in range(TAGGER_PHOTOS_PER_SHAPE):
+            name = f"photo_{h}x{w}_{i:02d}.jpg"
+            os.link(os.path.join(photo_dir, name), os.path.join(sub_dir, name))
+    files = gather_image_files(sub_dir)
+    facet = Facet(os.path.join(tmp, "direct.db"), config, device=tagger.device)
+    _, _, pils, _ = ChunkedMultiPassProcessor(facet)._load_chunk(files)
+    inputs = check_tagger_decode(tagger, [pils[0], pils[-1]], gpu)
+    time_tagger(tagger, pils[:TAGGER_PHOTOS_PER_SHAPE], inputs, gpu)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    direct = tagger.tag_batch(pils)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    budget = MODEL_DEVICE_REQUIREMENTS["vlm_tagger"]
+    phase("tagger", f"memory: {resident / 2**30:.2f} GiB resident (weights), peak "
+                    f"{peak / 2**30:.2f} GiB while tagging {len(pils)} photos in batches of "
+                    f"{tagger.batch_size}, against the {budget} GB budget "
+                    f"({peak / 1e9:.2f} GB; {gpu})")
+    rows, launches, lines, seconds = run_tagger_scan(
+        sub_dir, os.path.join(tmp, "tagged.db"), tagger, gpu)
+    hook.remove()
+    skipped = [ln for ln in lines if "unavailable" in ln or "skipped" in ln]
+    if skipped or tagger.skipped_batches:
+        raise AssertionError(f"the scan with the tagger skipped: {skipped}, "
+                             f"{tagger.skipped_batches} batches")
+    want = {os.path.abspath(f): tags_to_string(t) for f, t in zip(files, direct)}
+    for row in rows:
+        if not row["tags"] or row["tags"] != want[row["path"]]:
+            raise AssertionError(f"{row['path']}: tags {row['tags']!r} in the scan, "
+                                 f"{want[row['path']]!r} from the tagger directly")
+    if not seen or any(any(flags) for flags in seen):
+        raise AssertionError(f"the vision tower ran with TF32 flags {seen}; it must run in "
+                             f"full float32")
+    phase("tagger", f"TF32 flags (cudnn, matmul) inside the vision tower's "
+                    f"{len(seen)} forwards: {sorted(set(seen))}")
+    phase("tagger", f"with the tagger registered: {len(rows)} rows, each row's tags the "
+                    f"tagger's own ({sorted({r['tags'] for r in rows})}); no batch skipped; "
+                    f"launches {launches}; {len(rows) / seconds:.3f} images/s end to end, "
+                    f"model builds included ({seconds:.1f} s, {gpu})")
+    for ln in lines:
+        if "phases:" in ln or "scan complete:" in ln:
+            phase("tagger", ln.strip())
+    del tagger, facet
+    torch.cuda.empty_cache()
+    return {"24gb": plain_launches, "24gb_tagger": launches}
 
 
 # name -> (source, the TPU kernel it replaces, the scan whose count is its
@@ -1478,7 +2018,10 @@ def probe_rider_memory(gpu):
 def probe(gpu):
     """--probe: each rider's activation peak, then the default scan twice on
     one engine over the smoke's photos: cold (every model built on first
-    use), warm (models resident) and warm again under torch.profiler."""
+    use), warm (models resident) and warm again under torch.profiler; then
+    the same three runs of the 24gb scan (vram_profile auto) with the
+    full-width tagger registered, over TAGGER_PHOTOS_PER_SHAPE photos of
+    each shape."""
     from facet_tpu_torch.config.default_config import write_default_config
     from facet_tpu_torch.config.scoring_config import ScoringConfig
     from facet_tpu_torch.models.face_pipeline import FacePipeline
@@ -1510,6 +2053,25 @@ def probe(gpu):
         probe_run(processor, files, totals, "cold", gpu)
         probe_run(processor, files, totals, "warm", gpu)
         probe_run(processor, files, totals, "warm, profiled", gpu, profile=True)
+        del processor, facet
+        torch.cuda.empty_cache()
+
+        # the 24gb scan (vram_profile auto on the card) with the full-width
+        # tagger registered, built on first use, over the tagger subset
+        from facet_tpu_torch.models.vlm_tagger import VLMTagger
+
+        totals["tag_batch"] = 0.0
+        host_timed(VLMTagger, "tag_batch", totals)
+        subset = [f for (h, w) in SCAN_SHAPES
+                  for f in [p for p in files if f"_{h}x{w}_" in p][:TAGGER_PHOTOS_PER_SHAPE]]
+        config = ScoringConfig(cfg)
+        facet = scorer_mod.Facet(os.path.join(tmp, "scan24.db"), config, device="cuda")
+        facet.models.register("vlm_tagger", lambda c, cached: build_tagger(c)[0])
+        processor = ChunkedMultiPassProcessor(facet)
+        processor.detect_and_configure(verbose=True)
+        probe_run(processor, subset, totals, "24gb cold", gpu)
+        probe_run(processor, subset, totals, "24gb warm", gpu)
+        probe_run(processor, subset, totals, "24gb warm, profiled", gpu, profile=True)
     return 0
 
 
@@ -1517,7 +2079,9 @@ def main():
     gpu = phase_device()
     phase_build()
     measured = phase_kernels(gpu)
-    launches = phase_scan(gpu)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, default_rows = phase_scan(gpu, tmp)
+        launches.update(phase_tagger(gpu, tmp, default_rows))
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[scan][name],

@@ -5,14 +5,18 @@ The scan path of ``photos.py``: the default multi-pass scan and
 ``--config``, ``--force``, ``--limit`` and ``--speed-tier``. It runs on the
 card; ``--device cpu`` asks for the CPU (the counterpart of photos.py's JAX
 platform setting), and without a usable card and that flag it exits with
-an error. A default scan whose profile selects a member that is not ported
-yet (the VLM tagger of the "24gb" profile, which ``vram_profile: auto``
-picks on a card of 20 GB or more) exits non-zero and names that member
-instead of silently scoring fewer; so do ``--single-pass`` and
-``--dry-run``, naming what they need, and a scan that holds the faces
-member while a converted 2d106det landmark graph is installed (its runner
-is not ported), before any row is written. Every other ``photos.py`` mode exits
-with "not yet ported".
+an error. Under ``vram_profile: auto`` a card of 20 GB or more runs the
+"24gb" profile, whose Qwen2.5-VL tagger runs on the card when its
+converted checkpoints are installed and otherwise falls back, as in the
+JAX package, to CLIP tags. A default scan whose profile selects a member
+that is not ported yet (a quality model other than TOPIQ) exits non-zero
+and names that member instead of silently scoring fewer; so do
+``--single-pass`` and ``--dry-run``, naming what they need, and, before
+any row is written, a scan that would run an installed model the port has
+no runner for: a converted 2d106det landmark graph, or the tagger chain's
+first installed member when it is a Qwen3-VL or RAM++ install or the
+Qwen2.5 model directory without its converted checkpoints. Every other
+``photos.py`` mode exits with "not yet ported".
 """
 
 import argparse

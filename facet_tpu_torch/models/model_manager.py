@@ -6,9 +6,13 @@ unless the caller asks for the CPU (``device="cpu"``), and raises when
 there is no usable card. Device memory comes from
 ``torch.cuda.mem_get_info`` (total memory of the card), or host RAM in CPU
 mode; pass grouping is the same first-fit-decreasing bin packing over
-that budget. Factories are registered for ``clip``, ``topiq``, ``samp_net``
-and ``insightface``; any other member of the JAX package's ensemble raises
-``NotImplementedError`` naming the ROADMAP entry it waits in.
+that budget. Factories are registered for ``clip``, ``topiq``, ``samp_net``,
+``insightface`` and the three taggers of the fallback chain: ``vlm_tagger``
+(Qwen2.5-VL-7B on the card), and ``qwen3_vl_tagger`` and ``ram_tagger``,
+which only run the JAX package's availability probes (the port does not
+run them yet). Any other member of the JAX package's ensemble raises
+``NotImplementedError`` naming the ROADMAP entry it waits in. ``probe``
+tells, without loading anything, whether a member would load.
 """
 
 import os
@@ -18,9 +22,11 @@ import torch
 # Footprints in GB of the ported models: device memory (params + activation
 # headroom) and host RAM in CPU mode, as the JAX package budgets them.
 MODEL_DEVICE_REQUIREMENTS = {"clip": 2.0, "topiq": 1.5, "samp_net": 0.6,
-                             "insightface": 0.8}
+                             "insightface": 0.8, "vlm_tagger": 18.0,
+                             "qwen3_vl_tagger": 7.0, "ram_tagger": 14.0}
 MODEL_RAM_REQUIREMENTS = {"clip": 3.0, "topiq": 2.0, "samp_net": 1.0,
-                          "insightface": 1.2}
+                          "insightface": 1.2, "vlm_tagger": 30.0,
+                          "qwen3_vl_tagger": 9.0, "ram_tagger": 16.0}
 
 QUALITY_MODEL_ALIASES = {
     "topiq": "topiq", "hyperiqa": "hyperiqa", "dbcnn": "dbcnn", "musiq": "musiq",
@@ -35,9 +41,6 @@ UNPORTED = {
     "hyperiqa": "Queue 1 #9.2 (HyperIQA)",
     "dbcnn": "Queue 1 #9.2 (DBCNN)",
     "musiq": "Queue 1 #9.2 (MUSIQ)",
-    "vlm_tagger": "Queue 1 #9.4 (Qwen2.5-VL tagger)",
-    "qwen3_vl_tagger": "Queue 1 #9.4 (Qwen3-VL tagger)",
-    "ram_tagger": "Queue 1 #9.3 (RAM++ tagger)",
 }
 
 
@@ -82,12 +85,31 @@ class ModelManager:
         self.cache_hits = 0
         self.cache_misses = 0
         self._factories = {}
+        self._probes = {}
         self._register_default_factories()
 
     def register(self, name, factory):
         """factory(config, host_params_or_None) -> model object with optional
-        .host_params() for RAM caching."""
+        .host_params() for RAM caching. A registered factory replaces the
+        default one and its probe."""
         self._factories[name] = factory
+        self._probes.pop(name, None)
+
+    def probe(self, name):
+        """Whether ``load_model(name)`` would load, checked without loading:
+        False when the member is not installed (its loader would raise
+        RuntimeError and the fallback chain go on); NotImplementedError
+        when it is installed in a form the port does not run yet. A member
+        without a probe (a registered factory, a ported model) is True."""
+        if name not in self._probes:
+            return name in self._factories
+        try:
+            self._probes[name](self.config)
+        except NotImplementedError:      # a RuntimeError, and not "absent"
+            raise
+        except RuntimeError:
+            return False
+        return True
 
     def _register_default_factories(self):
         device = self.device
@@ -112,10 +134,35 @@ class ModelManager:
 
             return FacePipeline.create(config, cached, device)
 
+        def qwen_tagger(model_name):
+            def make(config, cached):
+                from facet_tpu_torch.models.vlm_tagger import VLMTagger
+
+                tagger = VLMTagger(config, model_name=model_name, device=device)
+                tagger.ensure_loaded()    # raises when the weights are absent
+                return tagger
+
+            def probe(config):
+                from facet_tpu_torch.models.vlm_tagger import VLMTagger
+
+                return VLMTagger(config, model_name=model_name, device=device).probe()
+
+            return make, probe
+
+        def probe_ram(config):
+            from facet_tpu_torch.models.vlm_tagger import probe_ram
+
+            probe_ram(config)     # always raises: the port does not run RAM++
+
         self._factories["clip"] = make_clip
         self._factories["topiq"] = make_topiq
         self._factories["samp_net"] = make_samp
         self._factories["insightface"] = make_insightface
+        for name, model_name in (("vlm_tagger", "qwen2.5-vl-7b"),
+                                 ("qwen3_vl_tagger", "qwen3-vl-2b")):
+            self._factories[name], self._probes[name] = qwen_tagger(model_name)
+        self._factories["ram_tagger"] = lambda config, cached: probe_ram(config)
+        self._probes["ram_tagger"] = probe_ram
 
     def load_model(self, name):
         if name in self.loaded:

@@ -123,6 +123,44 @@ def raw(path, tensor):
     return [Leaf(path, tuple(tensor.shape), tensor, _same)]
 
 
+def kernel(path, weight, bias=None):
+    """flax Dense leaves onto a (out, in) weight tensor, which may be a view
+    of a larger tensor that several Dense layers share (a fused q/k/v or
+    gate/up projection), and an optional (out,) bias view."""
+    out, inp = weight.shape
+    leaves = [Leaf(path + ("kernel",), (inp, out), weight, _dense_kernel)]
+    if bias is not None:
+        leaves.append(Leaf(path + ("bias",), (out,), bias, _same))
+    return leaves
+
+
+def frozen(*shape, dtype=torch.float32, device=None):
+    """An uninitialized parameter that takes no gradient (inference only)."""
+    return torch.nn.Parameter(torch.empty(*shape, dtype=dtype, device=device),
+                              requires_grad=False)
+
+
+@torch.no_grad()
+def random_init_(module, generator):
+    """Random weights drawn on the module's own device from ``generator``
+    (a ``torch.Generator`` on that device), for full-width runs without a
+    checkpoint: >=2-D leaves uniform in +-1/sqrt(fan_in), as the fallback
+    init draws them, except embedding tables, normal with std 0.02, as the
+    JAX package's ``init_text_params`` draws them; ones for 1-D
+    ``scale`` leaves, zeros for the other 1-D leaves."""
+    for leaf in module.flax_layout():
+        if leaf.path[-1] == "embedding":
+            leaf.tensor.normal_(0.0, 0.02, generator=generator)
+        elif len(leaf.shape) >= 2:
+            bound = 1.0 / math.sqrt(max(1, int(np.prod(leaf.shape[:-1]))))
+            leaf.tensor.uniform_(-bound, bound, generator=generator)
+        elif leaf.path[-1] == "scale":
+            leaf.tensor.fill_(1.0)
+        else:
+            leaf.tensor.zero_()
+    return module
+
+
 # ------------------------------------------------------------ fallback init
 
 

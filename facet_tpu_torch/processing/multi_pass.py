@@ -7,8 +7,10 @@ groups against the device-memory budget. Per chunk the host decodes and
 reads EXIF once (decode of chunk N+1 overlaps the device work of chunk N);
 in the group that holds clip the fused pass scores every image, with
 SCRFD's detection, TOPIQ and SAMP-Net riding the same resident batch;
-landmarks and ArcFace then run on the face crops; a pass without clip runs
-the statistics and pHash prepass alone. Then tagging, thumbnails, row
+landmarks and ArcFace then run on the face crops, and the VLM tagger of
+the "24gb" profile tags the chunk's images (its fallback chain ends in
+CLIP tags); a pass without clip runs the statistics and pHash prepass
+alone. Then tagging, thumbnails, row
 assembly with the aggregate, and one SQLite transaction per chunk (face
 rows included); after a ``--pass`` scan the aggregates recompute from the
 merged rows. Progress reporting and the RAM monitor are the port's copies
@@ -35,11 +37,18 @@ PASS_NAMES = {
     "embeddings": ["clip"],
 }
 
-# unavailable-model fallback chain of the one quality model the ported passes
-# request (reference: multi_pass.py:864-885); clipiqa is not ported, so a
-# TOPIQ that fails to load ends in "unavailable" and the CLIP aesthetic
-FALLBACK_CHAINS = {"topiq": ["clipiqa"]}
+# unavailable-model fallback chains (reference: multi_pass.py:864-885):
+# the taggers' vlm -> qwen3 -> ram, then CLIP tags; the one quality model
+# the ported passes request, whose clipiqa is not ported, so a TOPIQ that
+# fails to load ends in "unavailable" and the CLIP aesthetic
+FALLBACK_CHAINS = {
+    "vlm_tagger": ["qwen3_vl_tagger", "ram_tagger"],
+    "qwen3_vl_tagger": ["ram_tagger"],
+    "ram_tagger": [],
+    "topiq": ["clipiqa"],
+}
 QUALITY_PASS_MODELS = ("topiq", "clipiqa")
+TAGGERS = ("vlm_tagger", "qwen3_vl_tagger", "ram_tagger")
 
 # Column ownership for --pass partial updates: a single pass only
 # overwrites the columns of the models it actually ran plus the
@@ -71,6 +80,7 @@ MODEL_COLUMNS = {
                     "raw_eye_sharpness", "isolation_bonus"),
     "topiq": QUALITY_COLUMNS,
     "clipiqa": QUALITY_COLUMNS,
+    **{tagger: ("tags",) for tagger in TAGGERS},
 }
 
 
@@ -113,13 +123,22 @@ class ChunkedMultiPassProcessor:
     def _refuse_unrunnable(self):
         """Raise NotImplementedError before any chunk when the selection holds
         a member this install would make the port run differently from the
-        JAX package: the faces member with a converted 2d106det landmark
-        graph installed. The load fallback below would skip it, writing "no
-        face" rows (and, in --pass faces, over stored face columns)."""
+        JAX package, since the load fallback below would skip it: the faces
+        member with a converted 2d106det landmark graph installed ("no face"
+        rows, and in --pass faces over stored face columns), and a tagger
+        chain whose first member that would load is one the port does not
+        run (a Qwen3-VL or RAM++ install, or the Qwen2.5 model directory
+        without its converted checkpoints: other tags than the JAX
+        package's). The chain is walked with the probes alone."""
         if "insightface" in self.selected_models:
             from facet_tpu_torch.models.face_pipeline import check_no_landmark_graph
 
             check_no_landmark_graph()
+        for name in self.selected_models:
+            if name in TAGGERS:
+                for candidate in [name] + FALLBACK_CHAINS[name]:
+                    if self.models.probe(candidate):
+                        break
 
     # ------------------------------------------------------------- chunk IO
 
@@ -215,6 +234,8 @@ class ChunkedMultiPassProcessor:
             elif name == "insightface":
                 state["faces"] = model.analyze_batch(
                     state["images"], detections=state.pop("face_detections", None))
+            elif name in TAGGERS:
+                state["vlm_tags"] = model.tag_batch(state["pils"])
             self.phase_times["inference"] += time.time() - t0
 
     def _run_fused_clip_pass(self, group, state):
@@ -330,7 +351,7 @@ class ChunkedMultiPassProcessor:
         n = len(ok)
         state = {"paths": ok, "images": images, "pils": pils,
                  "aesthetics": [(None, None)] * n, "faces": [None] * n,
-                 "topiq": None, "samp": None}
+                 "topiq": None, "samp": None, "vlm_tags": None}
         uses_clip = any("clip" in group for group in self.passes)
         if not uses_clip:
             self._device_prepass(state)
@@ -346,7 +367,10 @@ class ChunkedMultiPassProcessor:
 
         t0 = time.time()
         tag_lists = [[] for _ in range(n)]
-        if self.config.get_tagging_settings().get("enabled", True):
+        if state["vlm_tags"] is not None:
+            # the taggers return tag names: the (tag, score) pairs of row assembly
+            tag_lists = [[(t, 1.0) for t in tags] for tags in state["vlm_tags"]]
+        elif self.config.get_tagging_settings().get("enabled", True):
             blobs = [b for _, b in state["aesthetics"]]
             if any(b is not None for b in blobs):
                 present = [b for b in blobs if b is not None]

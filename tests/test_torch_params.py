@@ -191,3 +191,75 @@ def test_load_npz_reads_the_converter_layout(tmp_path, monkeypatch):
     np.testing.assert_array_equal(loaded["params"]["fc1"]["kernel"],
                                   tree["params"]["fc1"]["kernel"])
     assert P.load_npz("no_such_checkpoint") is None
+
+
+def _qwen_pair(family):
+    """(port module, the JAX package's flax tree) of a tiny Qwen tower:
+    init_text_params for the text model, a flax init for the vision tower."""
+    if family == "qwen_text":
+        from facet_tpu.models.qwen_text import QwenTextConfig, init_text_params
+        from facet_tpu_torch.models import qwen_text
+
+        cfg = dict(vocab_size=64, hidden_size=32, intermediate_size=48, num_layers=2,
+                   num_heads=4, num_kv_heads=2, mrope_section=(2, 1, 1))
+        _, tree = init_text_params(QwenTextConfig(**cfg), seed=3)
+        return qwen_text.QwenTextModel(qwen_text.QwenTextConfig(**cfg), device="cpu"), tree
+    from facet_tpu.models.qwen_vision import QwenVisionConfig, QwenVisionTower
+    from facet_tpu_torch.models import qwen_vision
+
+    cfg = dict(hidden_size=16, out_hidden_size=24, intermediate_size=20, num_heads=2,
+               depth=2, patch_size=4, window_size=16, fullatt_block_indexes=(1,))
+    x = jnp.zeros((16, QwenVisionConfig(**cfg).patch_dim), jnp.float32)
+    tree = jax.jit(QwenVisionTower(QwenVisionConfig(**cfg), 4, 4).init)(
+        jax.random.PRNGKey(0), x)
+    return qwen_vision.QwenVisionTower(qwen_vision.QwenVisionConfig(**cfg), "cpu"), tree
+
+
+@pytest.mark.parametrize("family", ["qwen_text", "qwen_vision"])
+def test_qwen_bridge_consumes_every_leaf(family):
+    """bridge() takes the JAX package's whole Qwen tree: one port leaf per
+    flax leaf, each equal to its flax value after the layout change, and no
+    element of any port parameter left unfilled (q/k/v and gate/up land in
+    views of one fused tensor each)."""
+    port, tree = _qwen_pair(family)
+    tree = jax.tree.map(np.asarray, tree)
+    with torch.no_grad():
+        for param in port.parameters():
+            param.fill_(float("nan"))
+    P.bridge(port, tree)
+    flat = _flax_flat(tree)
+    leaves = port.flax_layout()
+    assert len(leaves) == len(flat)
+    assert all(not torch.isnan(p).any() for p in port.parameters())
+    for leaf in leaves:
+        np.testing.assert_array_equal(leaf.tensor.detach().numpy(),
+                                      leaf.convert(flat[leaf.path]), err_msg="/".join(leaf.path))
+
+
+def test_random_init_fills_every_leaf():
+    """random_init_ draws from its generator on the module's device: every
+    element set, >=2-D leaves within +-1/sqrt(fan_in), embedding tables
+    normal at std 0.02, scales one and biases zero, and the same seed gives
+    the same weights."""
+    from facet_tpu_torch.models.qwen_vision import QwenVisionConfig, QwenVisionTower
+    from facet_tpu_torch.models.qwen_text import QwenTextConfig, QwenTextModel
+
+    cfg = QwenTextConfig(vocab_size=512, hidden_size=32, intermediate_size=48, num_layers=1,
+                         num_heads=4, num_kv_heads=2, mrope_section=(2, 1, 1))
+    models = [P.random_init_(QwenTextModel(cfg, torch.bfloat16, "cpu"),
+                             torch.Generator().manual_seed(8)) for _ in range(2)]
+    for a, b in zip(models[0].parameters(), models[1].parameters()):
+        assert torch.equal(a, b)
+    for leaf in models[0].flax_layout():
+        t = leaf.tensor.float()
+        if leaf.path[-1] == "embedding":
+            assert abs(t.std().item() - 0.02) < 0.002
+        elif len(leaf.shape) >= 2:
+            # the bound, rounded to bf16 at most one ulp up
+            assert t.abs().max() <= (1 + 2 ** -7) / np.sqrt(leaf.shape[0]) and t.std() > 0
+        else:
+            assert (t == (1.0 if leaf.path[-1] == "scale" else 0.0)).all(), leaf.path
+    tower = P.random_init_(QwenVisionTower(QwenVisionConfig(
+        hidden_size=16, out_hidden_size=24, intermediate_size=20, num_heads=2, depth=1),
+        "cpu"), torch.Generator().manual_seed(8))
+    assert all(torch.isfinite(p).all() for p in tower.parameters())

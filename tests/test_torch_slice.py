@@ -272,9 +272,11 @@ def test_clip_aesthetic_bf16_bound(runs, photos):
 def test_cli_quality_pass_and_refusals(photos, tmp_path, capsys, monkeypatch):
     """python -m facet_tpu_torch <dir> --pass embeddings writes every row;
     the default scan under ``vram_profile: auto`` on a card of 20 GB or more
-    (the "24gb" profile, which tags with the unported VLM), --single-pass,
-    --dry-run and other photos.py modes are refused with a non-zero exit
-    that names what they need."""
+    (the "24gb" profile, whose VLM tagger the port runs from converted
+    checkpoints) with the Qwen2.5 model directory installed but not
+    converted (the JAX package would tag through host transformers),
+    --single-pass, --dry-run and other photos.py modes are refused with a
+    non-zero exit that names what they need."""
     from facet_tpu_torch.__main__ import main
     from facet_tpu_torch.models import model_manager
 
@@ -287,9 +289,11 @@ def test_cli_quality_pass_and_refusals(photos, tmp_path, capsys, monkeypatch):
     capsys.readouterr()
     with monkeypatch.context() as m:
         m.setattr(model_manager, "detect_device_memory_gb", lambda device: 80.0)
-        assert main([photo_dir] + args) == 2
+        m.chdir(tmp_path)
+        (tmp_path / "Qwen" / "Qwen2.5-VL-7B-Instruct").mkdir(parents=True)
+        assert main([photo_dir, "--force"] + args) == 2
     err = capsys.readouterr().err
-    assert "vlm_tagger" in err and "'24gb'" in err
+    assert "Qwen2.5-VL-7B-Instruct" in err and "qwen25_text.npz" in err
     assert main([photo_dir, "--single-pass"] + args) == 2
     assert "BatchProcessor" in capsys.readouterr().err
     assert main([photo_dir, "--dry-run"] + args) == 2
